@@ -1,6 +1,6 @@
-# Convenience targets (see CLAUDE.md for environment notes)
+# Convenience targets (see CLAUDE.md)
 
-.PHONY: test test-tpu bench bench-all native fuzz clean
+.PHONY: test test-device smoke bench bench-all native fuzz clean
 
 # ASan+UBSan mutational fuzz of the native JPEG entropy coders (the parsers
 # that consume untrusted bytes). Deterministic seed; FUZZ_SECONDS budget for
@@ -16,8 +16,11 @@ fuzz:
 test:
 	python -m pytest tests/ -q
 
-test-tpu:
-	RUSTCV_TEST_TPU=1 python -m pytest tests/ -q
+test-device:
+	RUSTCV_TEST_DEVICE=1 python -m pytest tests/ -q -m gpu
+
+smoke:
+	python chip_smoke.py
 
 bench:
 	python bench.py

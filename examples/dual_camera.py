@@ -4,7 +4,7 @@ Two ways to run two cameras:
 1. ``--mode independent``: two VideoCapture facades, each with its own
    worker (the reference's architecture).
 2. ``--mode batched`` (default): one MultiStreamEngine ticks both streams
-   in a single fused device program — the TPU-native shape.
+   in a single fused device program — the accelerator-native shape.
 """
 
 import argparse

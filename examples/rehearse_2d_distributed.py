@@ -1,4 +1,4 @@
-"""Cross-process 2-D (streams x rows) rehearsal worker (VERDICT r4 #7).
+"""Cross-process 2-D (streams x rows) rehearsal worker.
 
 The two-process rehearsal (tests/test_distributed_rehearsal.py) proved the
 fleet psum crosses OS processes, but the compute there was still local:
@@ -13,10 +13,11 @@ rows of every band depend on neighbor-process pixels through the
 Gaussian5+Sobel stencil chain).
 
 Launched by tests/test_distributed_rehearsal.py as N processes x 4 virtual
-CPU devices (default rehearsal: 4 x 4 = a 16-chip virtual fleet). On a real
-pod the same script runs unchanged minus --platform.
+CPU devices (default rehearsal: 4 x 4 = a 16-device virtual fleet). On GPU
+hosts the same script runs minus --platform; processes that share a host
+take disjoint cards with --local-device-ids.
 
-Scale-out seam rehearsed: SURVEY.md SS2.7 (cross-chip DP+SP row).
+Scale-out seam rehearsed: SURVEY.md SS2.7 (cross-device DP+SP row).
 """
 
 from __future__ import annotations
@@ -35,6 +36,8 @@ def main() -> None:
     p.add_argument("--height", type=int, default=128)
     p.add_argument("--width", type=int, default=96)
     p.add_argument("--platform", default=None)
+    p.add_argument("--local-device-ids", default=None,
+                   help="comma-separated GPU ids this process owns")
     args = p.parse_args()
 
     import jax
@@ -45,6 +48,8 @@ def main() -> None:
         coordinator_address=args.coordinator,
         num_processes=args.num_processes,
         process_id=args.process_id,
+        local_device_ids=(None if args.local_device_ids is None else
+                          [int(i) for i in args.local_device_ids.split(",")]),
     )
 
     from jax.sharding import Mesh, NamedSharding, PartitionSpec as P

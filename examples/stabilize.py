@@ -1,6 +1,6 @@
 """Video stabilization: the full feature-pipeline loop on a shaky clip.
 
-Per frame: FAST corners → BRIEF descriptors → Hamming matching (MXU
+Per frame: FAST corners → BRIEF descriptors → Hamming matching (matrix unit
 matmul) → RANSAC similarity → inverse warp (packed-quad gather). Writes a
 stabilized MJPEG-AVI next to the input. Demonstrates every stage of the
 beyond-reference vision stack working together.

@@ -2,7 +2,7 @@
 pyramidal Lucas–Kanade flow, frame to frame.
 
 The vision-pipeline companion to camera_demo: capture → corner detection →
-LK tracking → overlay, all hot math on TPU (corner scoring, patch
+LK tracking → overlay, all hot math on the device (corner scoring, patch
 gauss-newton iterations vectorized over the point set).
 """
 

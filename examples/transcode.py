@@ -1,10 +1,10 @@
-"""Offline video transcoding on TPU: MJPEG-AVI in → processed MJPEG-AVI out.
+"""Offline video transcoding on the device: MJPEG-AVI in → processed MJPEG-AVI out.
 
 The full round trip of the hybrid JPEG split, in both directions, in ONE
 device program per batch-tick:
 
   host: entropy decode (C++ Huffman → coefficients)
-  device: dequant + IDCT (MXU) → BGR → filter → overlay → FDCT (MXU) + quant
+  device: dequant + IDCT (matrix unit) → BGR → filter → overlay → FDCT (matrix unit) + quant
   host: entropy encode (C++ Huffman → JFIF) → AVI chunks
 
 Only quantized coefficients (mostly zeros) cross the host↔device boundary.

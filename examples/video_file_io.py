@@ -1,8 +1,8 @@
 """Video file I/O: record an MJPEG-AVI clip, then process it back through
-the batched TPU engine.
+the batched device engine.
 
 The reference stops at live cameras; OpenCV users also expect
-``VideoWriter`` and ``VideoCapture("clip.avi")``. Both halves reuse the TPU
+``VideoWriter`` and ``VideoCapture("clip.avi")``. Both halves reuse the device
 JPEG codec: writing can route each frame through the device FDCT encoder
 (``encoder="tpu"``); reading feeds the stored JPEG bytes into the standard
 MJPEG paths — including the batched engine's hybrid decode (host entropy →
@@ -39,7 +39,7 @@ def main(n_frames: int = 30, width: int = 320, height: int = 240) -> str:
     cap.release()
     print(f"VideoCapture read {count} frames of {mat.cols}x{mat.rows}")
 
-    # 3. Batch-process the file on the TPU engine (2 parallel readers,
+    # 3. Batch-process the file on the device engine (2 parallel readers,
     #    Sobel magnitude), hybrid MJPEG decode.
     eng = MultiStreamEngine(
         FileDriver(path=path, loop=True), 2,

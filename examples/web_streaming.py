@@ -1,6 +1,6 @@
 """MJPEG-over-HTTP streaming — port of
 ``rustcv-backend-v4l2/examples/web_streaming.rs:44-100`` (and the dual-camera
-variant): a capture task feeds frames through the TPU pipeline, JPEG-encodes
+variant): a capture task feeds frames through the device pipeline, JPEG-encodes
 on the host, and broadcasts the bytes to any number of connected HTTP
 clients as a ``multipart/x-mixed-replace`` stream.
 
@@ -50,7 +50,7 @@ def capture_loop(engine: MultiStreamEngine, channels, stop: threading.Event,
         # The production hot path: the tick program emits block-packed
         # quantized coefficients; engine.stream_encoded pipelines device
         # compute, the (small) async D2H, and host Huffman coding across
-        # ticks — the tunnel carries JPEG-sized payloads, never raw BGR.
+        # ticks — the host link carries JPEG-sized payloads, never raw BGR.
         while not stop.is_set():
             try:
                 for _res, payloads in engine.stream_encoded(stop=stop):
@@ -163,6 +163,6 @@ if __name__ == "__main__":
     p.add_argument("--streams", type=int, default=2)
     p.add_argument("--duration", type=float, default=0.0, help="auto-stop after N s")
     p.add_argument("--encoder", choices=("host", "tpu"), default="tpu",
-                   help="JPEG encoder: the hybrid TPU FDCT path (default) or host PIL")
+                   help="JPEG encoder: the hybrid device FDCT path (default) or host PIL")
     a = p.parse_args()
     main(a.port, a.streams, duration=a.duration, encoder=a.encoder)

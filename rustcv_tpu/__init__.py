@@ -1,10 +1,10 @@
-"""rustcv_tpu — a TPU-native reimplementation of RustCV's OpenCV-compatible
+"""rustcv_tpu — a accelerator-native reimplementation of RustCV's OpenCV-compatible
 vision pipeline.
 
 The reference (RustCV, pure Rust) runs per-pixel decode/convert/filter loops
 on the CPU behind an OpenCV-style facade. Here the entire hot path — YUYV /
 MJPEG decode, color conversion, resize, Gaussian/Sobel filtering, Harris
-features, drawing overlays — runs as fused JAX/XLA/Pallas programs on TPU,
+features, drawing overlays — runs as fused JAX/XLA/Pallas programs on the device,
 with batched multi-stream execution and host-side simulation frame sources
 replacing the OS camera drivers.
 

@@ -3,7 +3,7 @@ driver, completing the OpenCV-style videoio surface.
 
 The reference captures only live cameras; OpenCV users also expect
 ``VideoWriter`` and ``VideoCapture("file.avi")``. MJPEG-in-AVI is the
-natural container here because both halves reuse the TPU JPEG codec:
+natural container here because both halves reuse the device JPEG codec:
 
 - **write**: frames encode through :mod:`rustcv_tpu.ops.jpeg_encode`
   (device FDCT → host Huffman) or the host PIL encoder, and land in a
@@ -54,7 +54,7 @@ class VideoWriter:
     ``write(mat_or_bgr_array)`` per frame and ``release()`` (or use as a
     context manager). ``encoder="tpu"`` routes each frame through the
     hybrid device FDCT encoder; ``"host"`` (default) uses PIL — the right
-    choice for host-resident frames on high-RTT transports. For
+    choice for one-off host-resident frames. For
     device-resident batches, encode with
     :func:`rustcv_tpu.ops.jpeg_encode.encode_jpeg_batch_tpu` and append the
     payloads with :meth:`write_encoded`.
@@ -296,7 +296,7 @@ class AviMjpegReader:
 class FileSource(FrameSource):
     """A video file as a ``FrameSource``: emits stored JPEG payloads as
     ``PixelFormat.MJPEG`` frames (decode happens downstream exactly like a
-    live MJPEG camera — host oracle, native turbo path, or the TPU hybrid).
+    live MJPEG camera — host oracle, native turbo path, or the device hybrid).
 
     ``paced=True`` sleeps to the container fps (a real-time playback
     source); default is as-fast-as-possible (offline processing). ``loop``

@@ -5,8 +5,8 @@ negotiate + start; ``next_frame()`` returns a zero-copy Frame view valid
 until the next dequeue; ``read_decoded(&mut Mat)`` captures + decodes to BGR
 reusing the Mat allocation.
 
-TPU addition: :meth:`read_decoded_device` decodes to a device BGR array
-(uncompressed raw uploads + on-TPU convert), the building block the batched
+device addition: :meth:`read_decoded_device` decodes to a device BGR array
+(uncompressed raw uploads + on-device convert), the building block the batched
 runtime executor composes per stream.
 """
 

@@ -6,7 +6,7 @@ Analog of the reference's trait layer (``rustcv-core/src/traits.rs:95-180``):
 planes ``SensorControl`` / ``LensControl`` / ``SystemControl``
 (``traits.rs:126-159``) and trigger config (``traits.rs:27-90``).
 
-On a TPU host there is no camera hardware (BASELINE runs the simulation
+On a device host there is no camera hardware (BASELINE runs the simulation
 source), so the only built-in driver is :mod:`.simulation`; the protocol is
 the extension point for real capture backends.
 """

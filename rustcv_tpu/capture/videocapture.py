@@ -15,7 +15,7 @@ thread. Semantics preserved here with a Python worker thread + two
 - Degraded open: if the initial open fails the worker stays alive so a later
   ``set_resolution`` can recover (mod.rs:76-79).
 
-``decode_on_device=True`` routes decode through the TPU instead of the host
+``decode_on_device=True`` routes decode through the device instead of the host
 oracle (identical pixels — parity-tested); the batched multi-stream
 executor in :mod:`rustcv_tpu.runtime` is the high-throughput path.
 """

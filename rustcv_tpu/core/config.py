@@ -42,7 +42,7 @@ class CameraConfig:
     format_req: List[Tuple[PixelFormat, Priority]] = field(default_factory=list)
     buffer_count: int = 3
     # Default 256-byte stride alignment for SIMD/DMA friendliness
-    # (reference builder.rs:9,33). On TPU this also keeps H2D staging aligned.
+    # (reference builder.rs:9,33). On device this also keeps H2D staging aligned.
     align_stride: Optional[int] = 256
 
     def resolution(self, w: int, h: int, p: Priority = Priority.MEDIUM) -> "CameraConfig":

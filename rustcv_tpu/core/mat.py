@@ -7,9 +7,9 @@ Reference parity:
 - ``rustcv-camera/src/mat.rs:20-129`` — ``ensure_size`` reallocates only when
   the dimensions actually change (zero allocation in steady-state read loops).
 
-TPU-native redesign (per BASELINE north star): a Mat can be **host-backed**
+accelerator-native redesign (per BASELINE north star): a Mat can be **host-backed**
 (NumPy ``uint8``, stride-aware — the zero-copy interop surface) or
-**device-backed** (a packed ``jax.Array`` living in TPU HBM). The two sides
+**device-backed** (a packed ``jax.Array`` living in device memory). The two sides
 materialize lazily: pipelines keep data on-device; only APIs that need host
 bytes (``data``, ``imwrite``) pay a D2H copy. Mutating host bytes invalidates
 the device twin and vice versa.

@@ -2,7 +2,7 @@
 
 ``import rustcv_tpu.cv2 as cv2`` gives cv2's camelCase API — int enum
 constants, ndarray in / ndarray out, cv2 return conventions — running on
-the TPU-native implementations underneath (`rustcv_tpu.imgproc` et al.).
+the accelerator-native implementations underneath (`rustcv_tpu.imgproc` et al.).
 Parity is asserted call-for-call against real OpenCV 5.0 in
 ``tests/test_cv2_shim.py``; ops whose frozen specs are bit-exact vs cv2
 (see tests/test_opencv_parity.py) stay bit-exact through this layer.

@@ -2,7 +2,7 @@
 
 Optical-flow engines, detectors, stitching, Delaunay, 3d containers,
 QR encoding, FLANN — each a cv2-calling-convention wrapper over the
-TPU-native implementation in ``rustcv_tpu.ops``.  Cross-validated
+accelerator-native implementation in ``rustcv_tpu.ops``.  Cross-validated
 against OpenCV 5.0 in ``tests/test_cv2_algos.py``.
 """
 from __future__ import annotations

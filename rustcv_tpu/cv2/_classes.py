@@ -1,7 +1,7 @@
 """cv2 class-style APIs for the drop-in shim: features2d, video, calib3d,
 photo factories, objdetect, stereo, and the io/highgui surface.
 
-Everything delegates to the TPU-native implementations (ops/, imgproc/,
+Everything delegates to the accelerator-native implementations (ops/, imgproc/,
 capture/); only calling conventions are adapted here. Descriptor bit
 layouts (ORB/BRIEF) are internally consistent but not cv2's byte order —
 matching works within the framework, cross-matching against cv2-produced

@@ -115,12 +115,12 @@ def getBuildInformation() -> str:
         "rustcv_tpu cv2 facade (OpenCV-5.0-compatible surface)\n"
         f"  backend: jax {jax.__version__} / XLA\n"
         f"  devices: {[str(d) for d in jax.devices()]}\n"
-        "  compute path: TPU-native (pallas kernels + XLA fusion)\n"
+        "  compute path: accelerator-native (XLA fusion)\n"
     )
 
 
 def checkHardwareSupport(feature: int) -> bool:
-    return False  # CPU-feature flags are meaningless on the TPU path
+    return False  # CPU-feature flags are meaningless on the device path
 
 
 def getHardwareFeatureName(feature: int) -> str:
@@ -489,7 +489,7 @@ class RotatedRect:
 
 class UMat:
     """cv2.UMat role: device-resident array handle. On this stack a UMat
-    wraps the host ndarray; the TPU residency story lives in the engine
+    wraps the host ndarray; the device residency story lives in the engine
     (device-resident stream state), not in per-Mat handles."""
 
     def __init__(self, arg=None, *a, **k):

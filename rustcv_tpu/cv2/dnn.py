@@ -1,7 +1,7 @@
 """cv2.dnn — the array utilities implemented exactly (blobFromImage,
 NMSBoxes family); network loading raises a guard (we bundle no model
 weights and no inference graph executor lives in this package — the
-TPU inference story is jax itself).
+device inference story is jax itself).
 
 Cross-validated against cv2.dnn in tests/test_cv2_dnn.py.
 """
@@ -196,7 +196,7 @@ def blobFromImageWithParams(image, param=None, blob=None):
 
 class Net:
     """Guard: loading serialized DNN graphs is out of scope — rustcv_tpu
-    ships no weights and jax IS the TPU inference engine.  Export your
+    ships no weights and jax IS the device inference engine.  Export your
     model to jax/flax and run it under jit instead."""
 
     def __init__(self, *a, **k):

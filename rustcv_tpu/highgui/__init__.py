@@ -5,7 +5,7 @@ Reference: ``rustcv/src/highgui/mod.rs:12-141`` — a global window manager
 ``wait_key`` mapping Esc/Space/Enter/Q → 27/32/13/113, BGR→0x00RRGGBB
 packing for the framebuffer.
 
-TPU hosts are usually headless, so the "window" is a sink abstraction:
+device hosts are usually headless, so the "window" is a sink abstraction:
 - default: an in-memory framebuffer (inspectable via :func:`get_window_frame`
   — what a test or notebook polls instead of a screen);
 - ``RUSTCV_TPU_DISPLAY_DIR=/path``: additionally writes ``{name}.png`` per

@@ -35,9 +35,9 @@ def imencode(ext: str, mat: Mat, quality: int = 95, backend: str = "host") -> by
     ``backend="tpu"`` routes through the hybrid encoder — the numeric path
     (color convert, subsample, FDCT, quantize) runs on-device and only the
     Huffman coding on the host (:mod:`rustcv_tpu.ops.jpeg_encode`); the
-    right choice when frames already live in HBM or when batching. The
-    default host backend (PIL) is faster for one-off host-resident images
-    on high-RTT transports.
+    right choice when frames already live in device memory or when
+    batching. The default host backend (PIL) suits one-off host-resident
+    images.
     """
     import io
 

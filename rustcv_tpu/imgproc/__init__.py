@@ -249,7 +249,7 @@ def put_text(mat: Mat, text: str, org: Point, font_scale: float, color: Scalar) 
 
 
 # ---------------------------------------------------------------------------
-# Processing ops (TPU-backed when the Mat lives on device)
+# Processing ops (device-backed when the Mat lives on device)
 # ---------------------------------------------------------------------------
 
 
@@ -462,7 +462,7 @@ def in_range(mat: Mat, lower, upper) -> Mat:
 def moments(mat: Mat) -> dict:
     """Raw spatial moments m00/m10/m01 (+ centroid when nonempty) of a u8
     mask/gray Mat (OpenCV ``moments``). Exact: device path reduces per-row
-    partials on-chip and finishes in host int64."""
+    partials on-device and finishes in host int64."""
     from ..ops import color as _color
 
     if mat.is_on_device:
@@ -516,7 +516,7 @@ def compute_brief(mat: Mat, pts):
 
 
 def match_descriptors(d1, d2, valid1=None, valid2=None, ratio: float = 0.8):
-    """Hamming matching (±1 MXU matmul + Lowe ratio + cross-check) →
+    """Hamming matching (±1 matmul + Lowe ratio + cross-check) →
     int32 [M, 2] (index-into-d1, index-into-d2). See ops/brief.py."""
     from ..ops.brief import match_descriptors as _m
 
@@ -594,8 +594,7 @@ def calc_optical_flow_pyr_lk(
     from ..ops import optflow as _of
 
     def _gray(m: Mat):
-        # Device Mats STAY on device (a D2H+H2D round trip per call would
-        # dwarf the 12 ms kernel on high-RTT transports).
+        # Device Mats STAY on device (no D2H+H2D round trip per call).
         if m.is_on_device:
             from ..ops import color as _color
 
@@ -828,8 +827,7 @@ def log_polar(mat: Mat, center, max_radius: float,
 def calc_hist(mat: Mat):
     """256-bin histogram (int32 counts) of a u8 gray Mat (BGR inputs are
     converted via the exact luma) — OpenCV ``calcHist`` for the common
-    single-channel case. Device path: 256 fused masked reductions (scatter
-    measured ~10× slower on TPU)."""
+    single-channel case. Device path: scatter-free (ops/hist.py)."""
     import numpy as np
 
     from ..ops import hist as _hist
@@ -871,7 +869,7 @@ def hough_lines(mat: Mat, threshold: int = 50, max_lines: int = 32,
                 max_points: int = None):
     """Standard Hough line transform on a binary edge Mat (OpenCV
     ``HoughLines``): float32 [K, 2] (rho, theta) pairs, strongest first.
-    The accumulator is one-hot MXU matmuls over compacted edge points —
+    The accumulator is one-hot matmuls over compacted edge points —
     no scatter (ops/hough.py). Pair with :func:`canny`.
 
     ``max_points`` caps the compacted edge list (a static program shape).
@@ -1009,7 +1007,7 @@ def back_project(mat_hsv: Mat, hue_hist) -> Mat:
 def kmeans_quantize(mat: Mat, k: int = 8, iters: int = 10):
     """Color quantization via k-means (OpenCV ``kmeans`` role): (quantized
     Mat with ≤ k colors, palette [k, 3] u8). Assignment and update are
-    both MXU matmuls (ops/kmeans.py)."""
+    both matmuls (ops/kmeans.py)."""
     import numpy as np
 
     from ..ops import kmeans as _km
@@ -1058,7 +1056,7 @@ def match_template(mat: Mat, tmpl: Mat, method: str = "ccoeff_normed"):
     """OpenCV ``matchTemplate``: grayscale correlation search (BGR inputs
     are converted via the exact luma). Returns the float32 response map
     (H−th+1, W−tw+1) as a NumPy array — feed to :func:`min_max_loc`. On a
-    device Mat the three window statistics run as MXU convolutions
+    device Mat the three window statistics run as matrix unit convolutions
     (ops/template.py)."""
     import numpy as np
 
@@ -2008,7 +2006,7 @@ def akaze_features(mat: Mat, n_octaves: int = 4, n_sublevels: int = 4,
 
 def match_descriptors_hamming_any(d1, d2, ratio: float = 0.8):
     """Hamming matcher for byte descriptors of any width (AKAZE's 64
-    bytes, BRIEF/ORB's 32, …) — ±1 MXU matmul, ratio + cross-check
+    bytes, BRIEF/ORB's 32, …) — ±1 matmul, ratio + cross-check
     (ops/akaze.py)."""
     from ..ops.akaze import match_descriptors_hamming as _m
 
@@ -2121,7 +2119,7 @@ def hough_circles(mat: Mat, dp: int = 4, min_dist: float = 20.0,
     """Gradient Hough circle transform (OpenCV ``HoughCircles``): u8 gray
     → float32 [K, 3] (cx, cy, r), vote-sorted, greedily suppressing
     centers within ``min_dist`` of a stronger circle. The 2-D center
-    accumulator runs as per-radius MXU outer-product matmuls
+    accumulator runs as per-radius matrix unit outer-product matmuls
     (ops/hough.py)."""
     import numpy as np
 
@@ -2332,7 +2330,7 @@ def detect_line_segments(mat, **kw):
     """Line segments (OpenCV ximgproc ``FastLineDetector`` role; frozen
     chain-trace + Douglas-Peucker spec in ops/lsd.py) → float64 (N, 4)
     rows (x1, y1, x2, y2). Device Canny feeds the host tracer; pass
-    ``edges=`` to reuse an on-chip edge map."""
+    ``edges=`` to reuse an on-device edge map."""
     import numpy as np
 
     from ..ops.lsd import detect_line_segments as _detect

@@ -41,16 +41,14 @@ class PipelineModel:
     overlay: bool = False
     fps: int = 60
     encode_jpeg_quality: int = 0  # > 0: fused MJPEG-out transcode
-    # in-program sequential sub-ticks for wide batches (the temp working
-    # set grows super-linearly with batch width — docs/PERFORMANCE.md r5;
-    # measured optimum: 8 at 1080p, 4 at 4K ≈ chunk to ~2x the 8x1080p-
-    # equivalent pixel load)
+    # in-program sequential sub-ticks for wide batches (XLA's temporary
+    # working set grows faster than linearly with batch width)
     sub_batch: Optional[int] = None
 
     def engine(self, driver=None, *, device_sim: Optional[bool] = None, mesh=None, **overrides):
         """Build a MultiStreamEngine for this model.
 
-        ``device_sim`` defaults to True for raw formats (the zero-copy HBM
+        ``device_sim`` defaults to True for raw formats (the zero-copy device-memory
         capture path) and False for MJPEG (host entropy decode required).
         MJPEG defaults to the block-packed hybrid backend (host entropy
         decode → packed coefficient upload → on-device dequant/IDCT/color,
@@ -107,7 +105,7 @@ config3_blur_sobel_4k = PipelineModel(
     description="fused 5x5 Gaussian + Sobel |grad| on 4K, batch 32 (config 3)",
     n_streams=32, width=3840, height=2160,
     pixel_format=PixelFormat.YUYV, filter="blur_sobel", fps=30,
-    sub_batch=4,  # 768->892 fps on-chip (probe_cfg3_subbatch, r5)
+    sub_batch=4,  # not yet re-tuned on the GPU (ROADMAP speed item 7)
 )
 
 config4_harris_1080p = PipelineModel(

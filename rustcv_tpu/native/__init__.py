@@ -193,10 +193,19 @@ def get_lib() -> Optional[ctypes.CDLL]:
                 return None
         try:
             lib = ctypes.CDLL(_SO)
-            _bind(lib)
-        except OSError as e:
-            _build_error = str(e)
-            return None
+        except OSError:
+            # A library built on another machine (copied checkout) can link
+            # against shared objects this one lacks: rebuild here once.
+            err = _build()
+            if err is not None:
+                _build_error = err
+                return None
+            try:
+                lib = ctypes.CDLL(_SO)
+            except OSError as e:
+                _build_error = str(e)
+                return None
+        _bind(lib)
         _lib = lib
         return _lib
 
@@ -501,7 +510,7 @@ def jpeg_entropy_encode(
 ) -> bytes:
     """Baseline-JPEG entropy encode: quantized coefficient grids → JFIF bytes.
 
-    The host half of the TPU encode path (mirror of
+    The host half of the device encode path (mirror of
     :func:`jpeg_entropy_decode`): ``coeffs[c]`` is int16 ``[bh, bw, 64]``
     (or ``[bh, bw, 8, 8]``) in natural order over the full padded MCU grid,
     ``qts[c]`` the natural-order quant table (uint16, 64 entries; component

@@ -1,13 +1,13 @@
 // Baseline JPEG entropy ENCODER: quantized DCT coefficients → JFIF bytes.
 //
-// The host half of the TPU MJPEG *encode* path — the mirror image of
+// The host half of the device MJPEG *encode* path — the mirror image of
 // jpeg_entropy.cpp. Everything numeric (BGR→YCbCr, chroma subsampling,
-// forward DCT as one [64,64] MXU matmul, quantization) runs on-device
+// forward DCT as one [64,64] matmul, quantization) runs on-device
 // (rustcv_tpu/ops/jpeg_encode.py); the sequential, bit-granular Huffman
 // coding runs here. This mirrors the reference's use of turbojpeg to
 // *encode* camera frames for MJPEG-over-HTTP fan-out
 // (rustcv-backend-v4l2/examples/web_streaming.rs:44-100) — except the
-// number-crunching half moves to the TPU.
+// number-crunching half moves to the device.
 //
 // Emits baseline sequential, 8-bit, 1 or 3 components, single interleaved
 // scan, standard Annex-K Huffman tables, JFIF APP0 header, no restart

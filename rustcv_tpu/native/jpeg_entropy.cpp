@@ -1,12 +1,12 @@
 // Baseline JPEG entropy decoder → quantized DCT coefficients.
 //
-// The host half of the TPU MJPEG path (SURVEY.md §7 hard-part #1): Huffman
-// entropy decoding is sequential and bit-granular — hostile to TPU — so it
+// The host half of the device MJPEG path (SURVEY.md §7 hard-part #1): Huffman
+// entropy decoding is sequential and bit-granular — hostile to device — so it
 // runs here in C++; everything numeric after it (dequantization, 8×8 IDCT as
-// MXU matmuls, chroma upsampling, YCbCr→BGR) runs on-device
+// matmuls, chroma upsampling, YCbCr→BGR) runs on-device
 // (rustcv_tpu/ops/jpeg_tpu.py). This mirrors the split the reference makes
 // by delegating to turbojpeg (rustcv/src/videoio/mod.rs:206-252) — except
-// the number-crunching half moves to the TPU.
+// the number-crunching half moves to the device.
 //
 // Supports baseline sequential DCT, 8-bit, 1 or 3 components, interleaved
 // single-scan, restart markers. Emits the full padded MCU block grid per
@@ -197,7 +197,7 @@ struct Decoder {
       if (segend > len) return -3;
       // Every field read below is bounded against segend BEFORE the
       // dereference: this parser runs on untrusted camera/MJPEG bytes
-      // (ADVICE r1: truncated-DQT heap overflow, ASan-confirmed).
+      // (a truncated DQT once overflowed the heap, ASan-confirmed).
       if (m == 0xDB) {  // DQT
         long q = seg;
         while (q < segend) {
@@ -340,11 +340,10 @@ struct Decoder {
 
   // Block-packed mode: fixed K (index, value) slots per block, plus a
   // DENSE-ROW escape for blocks with more than K nonzeros (the block's
-  // full 64 coefficients + its block id). Motivation (measured on TPU):
-  // a flat scatter-add of ~130k pairs costs ~35 ms/tick — 4× the whole
-  // dense reconstruction — while a fixed-K one-hot unpack is ~1-2 ms of
-  // pure VPU work and a row-granular scatter of the few busy blocks is
-  // ~1-2 ms more. Camera-quality block histograms are bimodal (most
+  // full 64 coefficients + its block id). Motivation: a flat scatter-add
+  // of ~130k pairs is the slow form on the device, while a fixed-K one-hot
+  // unpack is pure elementwise work and a row-granular scatter touches
+  // only the few busy blocks. Camera-quality block histograms are bimodal (most
   // blocks ≤4 nonzeros, a small tail nearly dense), so small K + dense
   // escape is both the smallest wire format and the cheapest unpack.
   uint8_t* bp_idx = nullptr;   // [total_blocks, K] natural coeff index

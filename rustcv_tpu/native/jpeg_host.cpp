@@ -1,5 +1,5 @@
 // Fast full-host JPEG decode via libjpeg-turbo (SIMD), straight into a
-// caller-provided PITCHED buffer — the TPU-host analog of the reference's
+// caller-provided PITCHED buffer — the device-host analog of the reference's
 // turbojpeg path, which decompresses directly into the Mat with
 // pitch = mat.step (rustcv-camera/src/decode.rs:92-123). No intermediate
 // image object, no post-hoc channel swap: the decoder emits BGR (or RGB)

@@ -1,7 +1,7 @@
 // MSER component-tree pass — the host half of ops/mser.py.
 //
 // Per-pixel union-find with data-dependent merge history is the CCL/
-// GrabCut-precedent shape (pointer chasing a TPU cannot express); this
+// GrabCut-precedent shape (pointer chasing a device cannot express); this
 // native pass emits only the (seed, level, area) stability triples and
 // the Python side extracts pixel sets with one CCL per level. MUST stay
 // bit-identical to ops/mser.py::_mser_triples_spec — tests pin it.

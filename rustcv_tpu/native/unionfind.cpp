@@ -1,9 +1,9 @@
 // Min-root union-find over run adjacency pairs — the host half of the
 // connected-components split (rustcv_tpu/ops/ccl.py).
 //
-// Pointer-chasing with data-dependent heights is the one shape a TPU cannot
-// express efficiently (the r2 fixpoint-sweep formulation cost 429 ms @1080p
-// and minutes of compile); the TPU-native answer is the GrabCut precedent
+// Pointer-chasing with data-dependent heights is the one shape a device cannot
+// express efficiently (a fixpoint-sweep formulation was slow and took
+// minutes to compile); the answer is the GrabCut precedent
 // (maxflow.cpp): vectorized preprocessing reduces the image to O(#runs)
 // graph nodes, and this native pass resolves them in microseconds.
 
@@ -62,7 +62,7 @@ long rcv_union_find(int32_t* parent, long n, const int32_t* ea,
 // compact pass. Components number 1..count by their raster-first pixel
 // (min-root union — same contract as the Python run-graph path). Returns
 // the component count; labels[i] = 0 for background. ~5-10 ms @1080p on one
-// core — the pointer-chasing escape hatch the TPU formulation cannot match
+// core — the pointer-chasing escape hatch the Device formulation cannot match
 // (ops/ccl.py module docs).
 long rcv_ccl_label(const uint8_t* mask, long h, long w, int32_t* labels) {
   if (!mask || !labels || h <= 0 || w <= 0) return -1;

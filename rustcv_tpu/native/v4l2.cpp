@@ -1,6 +1,6 @@
 // Real V4L2 capture backend — direct ioctls, mmap ring, blocking DQBUF.
 //
-// TPU-native port of the reference's flagship zero-copy driver
+// accelerator-native port of the reference's flagship zero-copy driver
 // (rustcv-camera/src/backend/linux/mod.rs:38-446 + sys.rs:18-443):
 //   open(O_RDWR, blocking) → QUERYCAP → [enumerate fmt×size for the Python
 //   negotiator] → S_FMT → S_PARM fps → disable exposure-auto-priority (the

@@ -1,4 +1,4 @@
-"""Compute ops: golden CPU oracles + device (XLA/Pallas) kernels.
+"""Compute ops: golden CPU oracles + device (XLA) kernels.
 
 Submodules:
 - ``golden``   — frozen NumPy specs (test oracles), bit-exact.
@@ -11,7 +11,6 @@ Submodules:
 - ``decode``   — PixelFormat dispatch (host oracle + device paths).
 - ``jpeg_tpu``    — hybrid MJPEG decode (host entropy → device IDCT).
 - ``jpeg_encode`` — hybrid JPEG encode (device FDCT → host entropy).
-- ``pallas``   — hand-fused TPU kernels for the hot pipelines.
 """
 
 from . import (  # noqa: F401

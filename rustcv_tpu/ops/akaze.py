@@ -5,9 +5,9 @@ Completes the features2d family (SIFT ops/sift.py, ORB/BRIEF, FAST,
 MSER): the free, binary-descriptor detector OpenCV users reach for
 when SIFT is too slow and ORB too fragile.
 
-TPU split (the repo's standard dense/sparse split):
+device split (the repo's standard dense/sparse split):
 - DENSE: the nonlinear scale space is Fast-Explicit-Diffusion — pure
-  4-neighbor stencil elementwise steps, the single most TPU-friendly
+  4-neighbor stencil elementwise steps, the single most accelerator-friendly
   construction in the library (:func:`build_scale_space` has a jax
   twin :func:`build_scale_space_device`, f32 vs f64 ≤ 1e-3); Scharr
   first/second derivatives and Hessian responses are the same shifted-
@@ -385,7 +385,7 @@ def _mldb_descriptor(l: np.ndarray, gx: np.ndarray, gy: np.ndarray,
 def match_descriptors_hamming(d1, d2, ratio: float = 0.8) -> np.ndarray:
     """Hamming matching for byte-packed descriptors of ANY width (the
     BRIEF matcher is fixed at 256 bits) → int32 [M, 2] (i1, i2): ±1
-    MXU matmul (dot = nbits − 2·hamming), Lowe ratio + mutual
+    matmul (dot = nbits − 2·hamming), Lowe ratio + mutual
     cross-check — the ops/brief.py protocol."""
     import jax.numpy as jnp
 

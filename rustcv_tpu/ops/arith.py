@@ -2,8 +2,8 @@
 ``absdiff``/``bitwise_*``/``convertScaleAbs``/``norm``/``countNonZero``/
 ``meanStdDev`` roles).
 
-Pure elementwise VPU work — XLA fuses chains of these into single HBM
-passes, so composition is free (docs/PERFORMANCE.md). All frozen specs
+Pure elementwise work — XLA fuses chains of these into single device-memory
+passes, so composition is free. All frozen specs
 match the NumPy oracles in this module bit-for-bit; saturating u8
 rounding is round-half-even (jnp.round == np.rint), matching filter2d.
 

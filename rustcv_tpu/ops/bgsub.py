@@ -2,10 +2,10 @@
 ``BackgroundSubtractorMOG2`` role; Zivkovic-style update rules, frozen
 simplified spec below).
 
-TPU formulation: the entire model is [K, H, W(, C)] float32 planes and
+Device formulation: the entire model is [K, H, W(, C)] float32 planes and
 every rule — matching, ownership, running-moment updates, weight
 normalization, the sorted-cumulative-weight background test — is
-elementwise VPU arithmetic with the K axis unrolled (K=4 default). No
+elementwise arithmetic with the K axis unrolled (K=4 default). No
 gathers, no scatters, no sorting networks beyond K pairwise compares.
 State threads functionally through :func:`mog2_step`, so it drops into
 ``lax.scan`` over a clip or a streaming engine tick unchanged.
@@ -89,7 +89,7 @@ def mog2_step(state, frame: jax.Array, params: MOG2Params = MOG2Params()):
     before = (wj > wi) | ((wj == wi) & (j_idx < i_idx))  # j sorts before i
     cum_before = jnp.sum(jnp.where(before, wj, 0.0), axis=1)  # [K, H, W]
     in_bg = cum_before < p.ratio
-    # in_bg at the best-match component, gather-free (TPU: one-hot sum
+    # in_bg at the best-match component, gather-free (device: one-hot sum
     # beats take_along_axis)
     bg_at_best = jnp.any(onehot & in_bg, axis=0)
     fg = ~(any_match & bg_at_best)

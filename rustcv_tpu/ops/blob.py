@@ -1,6 +1,6 @@
 """Blob detection (the OpenCV ``SimpleBlobDetector`` role).
 
-Composed from the existing TPU-native pieces: each threshold level's
+Composed from the existing accelerator-native pieces: each threshold level's
 binarization + connected-component labeling runs on device (segmented
 min-scans, ops/ccl.py); per-component geometry (area, perimeter,
 circularity, convexity, inertia) uses the host contour utilities

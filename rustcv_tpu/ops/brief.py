@@ -1,13 +1,13 @@
 """BRIEF-256 descriptors + Hamming matching — the describe/match half of
 the feature pipeline (FAST/Harris detect → BRIEF describe → match).
 
-TPU formulation:
+Device formulation:
 - one 5×5 Gaussian over the whole image (the frozen blur spec), then each
   keypoint's 33×33 patch comes from ONE dynamic_slice (the LK trick) and
   256 fixed point-pair compares pack into 8 u32 words — all vmapped over
   keypoints;
 - matching is a MATMUL: descriptors as ±1 float32 [N, 256] × [256, M] on
-  the MXU gives dot = 256 − 2·hamming, so nearest-by-hamming =
+  the matrix unit gives dot = 256 − 2·hamming, so nearest-by-hamming =
   argmax-by-dot; Lowe ratio test on the top-2.
 
 Frozen spec: upright BRIEF (no orientation steering — fine for tracking /
@@ -79,7 +79,7 @@ def match_descriptors(
 ) -> np.ndarray:
     """Hamming matching with Lowe ratio test → int32 [M, 2] (i1, i2).
 
-    dist = 256 − popcount(XNOR) computed as a ±1 MXU matmul (dot =
+    dist = 256 − popcount(XNOR) computed as a ±1 matmul (dot =
     256 − 2·hamming); a match survives when best < ratio·second-best and
     it wins the mutual cross-check."""
     b1 = _bits_pm1(np.asarray(d1))

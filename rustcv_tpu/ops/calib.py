@@ -10,7 +10,7 @@ k3):
     x' = x(1 + k1 r² + k2 r⁴ + k3 r⁶) + 2 p1 x y + p2 (r² + 2x²)
     y' = y(1 + k1 r² + k2 r⁴ + k3 r⁶) + p1 (r² + 2y²) + 2 p2 x y
 
-TPU split: table builds and point math are host float64 (tiny,
+device split: table builds and point math are host float64 (tiny,
 per-camera, done once); the per-pixel image resampling is the device
 ``remap`` packed-quad gather (ops/warp.py) with TRACED maps — changing
 cameras never recompiles. This mirrors how warpPerspective builds its
@@ -831,7 +831,7 @@ def estimate_affine_3d(
 # ---------------------------------------------------------------------------
 # Fisheye (equidistant) camera model — OpenCV ``cv::fisheye`` role
 # ---------------------------------------------------------------------------
-# Frozen spec (float64 host, same TPU split as the pinhole model above:
+# Frozen spec (float64 host, same device split as the pinhole model above:
 # host table builds, device packed-quad remap):
 #   θ = atan(r), θ_d = θ·(1 + k1·θ² + k2·θ⁴ + k3·θ⁶ + k4·θ⁸)
 #   distorted normalized = (θ_d/r)·(x, y)   (r = √(x²+y²); r→0 ⇒ scale 1)

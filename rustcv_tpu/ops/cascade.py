@@ -7,7 +7,7 @@ plus an AdaBoost trainer (:func:`train_cascade`) and a JSON model
 format, so users train/load their own cascades (no OpenCV data files
 are copied).
 
-TPU formulation — gather-free window evaluation: a Haar feature is a
+Device formulation — gather-free window evaluation: a Haar feature is a
 ±-weighted sum of rectangle sums; on the integral image a rectangle sum
 for EVERY window position simultaneously is four SHIFTED SLICES of the
 integral (one subtraction chain per rect, vectorized over the whole

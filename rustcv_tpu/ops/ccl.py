@@ -3,9 +3,9 @@ union-find.
 
 ``connectedComponents`` is the textbook "sequential" vision op: union-find
 over a raster scan, pointer-chasing with data-dependent depth — the ONE
-shape a TPU cannot express efficiently. The r2 formulation (iterated
-segmented min-scans to a fixed point on-device) was exact but cost 429 ms
-@1080p and minutes of XLA compile; per the GrabCut precedent
+shape a device cannot express efficiently. An earlier formulation (iterated
+segmented min-scans to a fixed point on-device) was exact but slow and took
+minutes of XLA compile; per the GrabCut precedent
 (ops/grabcut.py — host C++ Dinic for the pointer-chasing core), the right
 split is:
 
@@ -20,8 +20,7 @@ Components number 1..N by their raster-first pixel (min-root union keeps
 the smallest run id as each component's representative — the frozen order
 contract for free). Matches the BFS oracle exactly. When the native
 library is available the whole thing is ONE C++ two-pass scan
-(``rcv_ccl_label``): measured 5 ms @1080p blob masks / 36 ms dense
-speckle on one host core vs 429 ms on-device — and zero device compile.
+(``rcv_ccl_label``), with zero device compile.
 """
 
 from __future__ import annotations
@@ -73,9 +72,8 @@ def connected_components(mask, max_rounds: int = 256, connectivity: int = 4):
     if m.ndim != 2:
         raise ValueError(f"connected_components: 2-D mask required, got {m.shape}")
     if native.available():
-        # The fast path: one native two-pass scan (measured 5 ms @1080p
-        # blob masks, 36 ms dense speckle, vs 429 ms for the r2 on-device
-        # fixpoint); the vectorized run-graph below is the NumPy fallback.
+        # The fast path: one native two-pass scan; the vectorized
+        # run-graph below is the NumPy fallback.
         # Any nonzero byte is foreground — u8 masks pass through zero-copy.
         mm = m if m.dtype == np.uint8 else (m != 0).astype(np.uint8)
         return native.ccl_label(mm, connectivity)

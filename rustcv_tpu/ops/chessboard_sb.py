@@ -4,10 +4,10 @@ Corners for Calibration", BMVC 2018).
 
 The reference (RustCV) has no calibration; OpenCV-parity addition
 closing the last named gap next to ops/chessboard.py (the quad-ladder
-``findChessboardCorners`` twin). TPU-first split: the dense per-pixel
+``findChessboardCorners`` twin). device-first split: the dense per-pixel
 corner-likelihood field — where the FLOPs are — is ONE batched jax
 convolution program (16 sector-mean prototype kernels in a single
-``lax.conv_general_dilated`` call, static shapes, MXU/VPU friendly);
+``lax.conv_general_dilated`` call, static shapes, matmul/elementwise friendly);
 the sparse structure recovery (point graph → lattice BFS → canonical
 grid) is host code over tens of points, like the quad pipeline.
 

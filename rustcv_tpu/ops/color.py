@@ -1,10 +1,10 @@
-"""Device (TPU/XLA) color conversions — bit-exact vs :mod:`golden`.
+"""Device (XLA) color conversions — bit-exact vs :mod:`golden`.
 
 All arithmetic is int32 with explicit shifts/clamps so XLA cannot reassociate
 into anything that changes u8 results (SURVEY.md §7 hard-part #2). Every
 function accepts either a single frame or a leading batch dimension — shapes
 are static under ``jit`` and the batch axis is the natural sharding axis for
-multi-chip execution (``parallel/mesh.py``).
+multi-device execution (``parallel/mesh.py``).
 
 Reference formulas: ``rustcv-camera/src/decode.rs:160-219``,
 ``rustcv/src/videoio/mod.rs:344-399`` (see golden.py for the exact spec).
@@ -12,25 +12,12 @@ Reference formulas: ``rustcv-camera/src/decode.rs:160-219``,
 
 from __future__ import annotations
 
-import os
 from functools import partial
 
 import numpy as np
 
 import jax
 import jax.numpy as jnp
-
-
-def _interleave_impl() -> str:
-    """Lowering strategy for the packed-BGR byte interleave (A/B-able via
-    RUSTCV_INTERLEAVE; probe_interleave.py measures the composed tick).
-    All variants are bit-identical; they differ only in which relayout
-    XLA emits. Measured composed 8×1080p tick (r4, best of 3):
-    transpose 1.944 ms < stack 1.967 < set 2.176 < pad 5.361 —
-    swapaxes on the u16 words lets XLA fold the stride-3 interleave
-    into the consumer layout where the stack lowering emitted an extra
-    broadcast pass."""
-    return os.environ.get("RUSTCV_INTERLEAVE", "transpose")
 
 
 def _bt601(y, u, v):
@@ -47,8 +34,8 @@ def _bt601(y, u, v):
 
 def _unpack_yuyv_words(src: jax.Array, width: int, height: int):
     """Deinterleave YUYV via u8→u32 bitcast: one layout conversion instead of
-    four strided gathers (TPU packs u8 4-per-lane; word-wise shifts are pure
-    VPU work). Returns int32 planes (…, H, W/2): y0, u, y1, v."""
+    four strided gathers (u8 packs 4 per 32-bit word; word-wise shifts are pure
+    elementwise work). Returns int32 planes (…, H, W/2): y0, u, y1, v."""
     batch = src.shape[:-1] if src.shape[-1] == height * width * 2 else src.shape[:-2]
     words = jax.lax.bitcast_convert_type(
         src.reshape(*batch, height, width // 2, 4), jnp.uint32
@@ -62,55 +49,25 @@ def _interleave_pair_bgr(b0, g0, r0, b1, g1, r1, width: int, height: int):
     [b0,g0][r0,b1][g1,r1] = the 6-byte BGR pair).
 
     Packed-rows is the device-native BGR layout (see module note below):
-    a trailing dim of 3 occupies 3 of 128 lanes — 42× wasted bandwidth —
-    while (H, W*3) fills lanes completely AND matches Mat's host layout
-    byte-for-byte.
+    a trailing dim of 3 pads badly in device tilings, while (H, W*3) is
+    dense AND matches Mat's host layout byte-for-byte. The three u16 word
+    planes are stacked and swapped so XLA can fold the stride-3 interleave
+    into the consumer's layout.
     """
     batch = b0.shape[:-2]
-    # NOTE (measured r3): a u32-QUAD variant (two pairs → three u32 words,
-    # halving the minor-axis elements through the stack/bitcast relayout)
-    # REGRESSED the composed headline 1.97 → 3.43 ms/tick: the even/odd
-    # pair deinterleave it needs is six strided lane slices — the expensive
-    # gather form (CLAUDE.md). Reverted; u16-pair form is the keeper.
     w0 = (b0 | (g0 << 8)).astype(jnp.uint16)
     w1 = (r0 | (b1 << 8)).astype(jnp.uint16)
     w2 = (g1 | (r1 << 8)).astype(jnp.uint16)
-    impl = _interleave_impl()
-    if impl == "pad":
-        # Interior padding + OR: each word array expands straight to its
-        # stride-3 lane positions in ONE pad op (no broadcast pass), then
-        # three ORs combine them. Attacks the r3 roofline finding that the
-        # stack→bitcast→reshape lowering costs ~430 MB/tick of
-        # broadcast+relayout copies at 8×1080p.
-        cfg = ((0, 0, 0),) * (w0.ndim - 1)
-        zero = jnp.uint16(0)
-        words = (
-            jax.lax.pad(w0, zero, (*cfg, (0, 2, 2)))
-            | jax.lax.pad(w1, zero, (*cfg, (1, 1, 2)))
-            | jax.lax.pad(w2, zero, (*cfg, (2, 0, 2)))
-        )  # (..., H, W*3/2) u16
-        bytes_ = jax.lax.bitcast_convert_type(words, jnp.uint8)
-        return bytes_.reshape(*batch, height, width * 3)
-    if impl == "set":
-        out = jnp.zeros((*batch, height, width * 3 // 2), jnp.uint16)
-        out = out.at[..., 0::3].set(w0).at[..., 1::3].set(w1)
-        out = out.at[..., 2::3].set(w2)
-        bytes_ = jax.lax.bitcast_convert_type(out, jnp.uint8)
-        return bytes_.reshape(*batch, height, width * 3)
-    if impl == "transpose":
-        stacked = jnp.stack([w0, w1, w2], axis=-2)  # (..., H, 3, W/2)
-        packed = jnp.swapaxes(stacked, -1, -2)      # (..., H, W/2, 3)
-        bytes_ = jax.lax.bitcast_convert_type(packed, jnp.uint8)
-        return bytes_.reshape(*batch, height, width * 3)
-    packed = jnp.stack([w0, w1, w2], axis=-1)  # (..., H, W/2, 3) u16
-    bytes_ = jax.lax.bitcast_convert_type(packed, jnp.uint8)  # (..., 3, 2)
+    stacked = jnp.stack([w0, w1, w2], axis=-2)  # (..., H, 3, W/2)
+    packed = jnp.swapaxes(stacked, -1, -2)      # (..., H, W/2, 3)
+    bytes_ = jax.lax.bitcast_convert_type(packed, jnp.uint8)
     return bytes_.reshape(*batch, height, width * 3)
 
 
 @partial(jax.jit, static_argnames=("width", "height"))
 def yuyv_to_bgr_packed(src: jax.Array, width: int, height: int) -> jax.Array:
     """YUYV → packed-rows BGR u8 (…, H, W*3) — the device-native layout
-    (full 128-lane utilization; identical bytes to the interleaved form)."""
+    (dense layout; identical bytes to the interleaved form)."""
     y0, u, y1, v = _unpack_yuyv_words(src, width, height)
     b0, g0, r0, b1, g1, r1 = _bt601_pair(y0, y1, u, v)
     return _interleave_pair_bgr(b0, g0, r0, b1, g1, r1, width, height)
@@ -138,7 +95,7 @@ def yuyv_to_bgr(src: jax.Array, width: int, height: int) -> jax.Array:
 
     ``src``: u8, shape (..., height*width*2) flat or (..., H, W*2);
     returns (..., H, W, 3). Prefer :func:`yuyv_to_bgr_packed` inside device
-    pipelines — the HWC trailing-3 layout wastes 42× lanes on TPU.
+    pipelines — the HWC trailing-3 layout pads badly in device tilings.
     """
     out = yuyv_to_bgr_packed(src, width, height)
     return out.reshape(*out.shape[:-2], height, width, 3)
@@ -589,7 +546,7 @@ def bgr_to_gray(bgr: jax.Array) -> jax.Array:
 
 def _div_floor_exact(a: jax.Array, b: jax.Array) -> jax.Array:
     """Exact floor(a / b) for int32 0 <= a < 2^24, 1 <= b (no integer-divide
-    VPU instruction on TPU — f32 reciprocal + one-step fix-up, same pattern
+    vector instruction on the device — f32 reciprocal + one-step fix-up, same pattern
     as filters.isqrt_exact)."""
     q = jnp.floor(a.astype(jnp.float32) / b.astype(jnp.float32)).astype(jnp.int32)
     r = a - q * b
@@ -656,7 +613,7 @@ def ycrcb_to_bgr(ycrcb: jax.Array) -> jax.Array:
 def hsv_to_bgr(hsv: jax.Array) -> jax.Array:
     """(…, 3) u8 HSV (H ∈ [0, 180)) → BGR u8 — bit-exact vs
     golden.hsv_to_bgr. The 6-sector select is a one-hot sum (per-pixel
-    small-axis gathers are the slow form on TPU; see CLAUDE.md)."""
+    small-axis gathers are the slow form on the device; see CLAUDE.md)."""
     h = hsv[..., 0].astype(jnp.int32)
     s = hsv[..., 1].astype(jnp.int32)
     v = hsv[..., 2].astype(jnp.int32)
@@ -758,7 +715,7 @@ def in_range(img: jax.Array, lower: jax.Array, upper: jax.Array) -> jax.Array:
 def moments_rows(mask: jax.Array) -> jax.Array:
     """Per-row moment partials [H, 2] int32: (Σ value, Σ value·x) per row.
 
-    Full moments overflow int32 at 4K (m10 ≈ 2^45) and TPU has no int64 /
+    Full moments overflow int32 at 4K (m10 ≈ 2^45) and device has no int64 /
     float64 wide enough for exact device totals, so the device emits exact
     per-row partials (row Σv ≤ 255·4096 and row Σv·x ≤ 2^31 for W ≤ 4096)
     and the caller finishes in host int64 (a tiny [H, 2] D2H)."""
@@ -796,8 +753,8 @@ def yuyv_to_bgr_packed_overlay(
     """YUYV → packed BGR with the rectangle overlay composited on the PAIR
     planes, before the byte interleave — so the overlay fuses into the
     decode's elementwise DAG instead of costing a separate read+write of
-    the 50 MB BGR image after the interleave relayout (r4; bit-exact vs
-    rectangle_packed(yuyv_to_bgr_packed(...)), tests/test_pallas_decode.py).
+    the BGR image after the interleave relayout (bit-exact vs
+    rectangle_packed(yuyv_to_bgr_packed(...)), tests/test_headline_stages.py).
 
     src (N, H·W·2) u8; rects (N, 4) i32; colors (N, 3) u8; thickness i32.
     """

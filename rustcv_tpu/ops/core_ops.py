@@ -9,9 +9,9 @@
 
 The reference (RustCV) has no core-array module — this is OpenCV-role
 surface so a migrating user finds the cv2 utility layer here. Image-scale
-ops carry jax device twins (pure elementwise/layout VPU work that XLA
+ops carry jax device twins (pure elementwise/layout work that XLA
 fuses for free); small-matrix linear algebra runs on the host in float64
-like the calib module (MXU has nothing to win on 3×3s and the callers
+like the calib module (matrix unit has nothing to win on 3×3s and the callers
 are host-side anyway).
 
 Frozen specs (validated against OpenCV 5.0 in tests/test_core_ops.py):

@@ -18,8 +18,8 @@ cv2 5.0 full-frame (tests/test_corner.py):
 - preCornerDetect = (Dxx·Dy² + Dyy·Dx² − 2·Dxy·Dx·Dy) / (2^(ksize-1)·255)³
   (measured: 1/1020³ at ksize=3).
 
-TPU formulation: everything is shifted-view taps + elementwise algebra
-— XLA fuses the whole response into one HBM pass; the 2×2 eigen system
+Device formulation: everything is shifted-view taps + elementwise algebra
+— XLA fuses the whole response into one device-memory pass; the 2×2 eigen system
 is solved in closed form (no per-pixel iteration).
 """
 

@@ -6,7 +6,7 @@ PixelFormat) with two paths:
 - :func:`decode_frame_host` — NumPy oracle decode into a host Mat (the
   bit-exact CPU path, used by ``Frame.decode_bgr`` and as the test oracle).
 - :func:`decode_to_device` — decode a raw frame to a device BGR array.
-  Uncompressed formats upload raw bytes and convert on-TPU (the raw YUYV
+  Uncompressed formats upload raw bytes and convert on-device (the raw YUYV
   payload is 2 B/px vs 3 B/px BGR — converting after H2D also saves PCIe
   bandwidth). MJPEG performs host entropy decode (PIL/libjpeg-turbo, the
   same engine family as the reference's turbojpeg choice at
@@ -151,8 +151,8 @@ def decode_to_device(frame, mjpeg_hybrid: bool = False):
     """Decode one Frame to a device (H, W, 3) u8 BGR array.
 
     ``mjpeg_hybrid=True`` uses the coefficient-level path: C++ Huffman
-    entropy decode on the host, dequant + IDCT (MXU matmuls) + upsample +
-    color on TPU (ops/jpeg_tpu.py). Pixels differ from the full-host libjpeg
+    entropy decode on the host, dequant + IDCT (matmuls) + upsample +
+    color on the device (ops/jpeg_tpu.py). Pixels differ from the full-host libjpeg
     path by ≤1-2 LSB (float vs fixed-point IDCT — tolerance-tested).
     """
     import jax

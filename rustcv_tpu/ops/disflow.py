@@ -3,7 +3,7 @@ al. 2016: Dense Inverse Search) — the modern default dense flow,
 complementing Farneback (ops/farneback.py) and pyramidal LK
 (ops/optflow.py).
 
-TPU formulation:
+Device formulation:
 - Inverse search is per-PATCH, and every pixel of a patch shares the
   patch's translation — so the warped-patch sample is ONE
   ``dynamic_slice`` at the integer part + four static-offset slices
@@ -254,7 +254,7 @@ def _level_j(i0, i1, flow_init, iters):
 
     # lax.scan over patches, NOT a Python unroll: the unrolled form
     # emitted ~2 300 scatter-adds per pyramid level and took XLA >5 min
-    # to compile (r5 parity-probe finding — same trap as meanshift);
+    # to compile (same trap as meanshift);
     # the scan accumulates in the identical (a, b) order, so results
     # are bit-identical, and compiles in seconds.
     num = jnp.zeros((h, w, 2), jnp.float32)

@@ -1,7 +1,7 @@
 """Device drawing ops — rectangle and alpha-mask blending (put_text backend).
 
 The reference draws in-place with per-pixel CPU loops
-(``rustcv/src/imgproc/drawing.rs:67-163``). TPU-native design: drawing is a
+(``rustcv/src/imgproc/drawing.rs:67-163``). accelerator-native design: drawing is a
 functional masked update over the whole image — one fused elementwise kernel,
 amortized to zero when composed into the per-tick pipeline. Rectangle
 parameters are **traced** (dynamic), so moving overlays never recompile.

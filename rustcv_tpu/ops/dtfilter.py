@@ -3,7 +3,7 @@ built on it (``edgePreservingFilter`` / ``detailEnhance`` /
 ``stylization`` / ``pencilSketch`` roles; Gastal & Oliveira 2011, the
 recursive RF filter OpenCV's photo module uses).
 
-TPU formulation: the recursive filter is a ``lax.scan`` along the scan
+Device formulation: the recursive filter is a ``lax.scan`` along the scan
 axis carrying one [M, C] slab — identical in shape to the SGBM path
 scans. Per iteration: horizontal left→right, right→left, then the
 transposed vertical pair; the per-pixel feedback weight ``a^d`` is
@@ -219,7 +219,7 @@ def pencil_sketch(img, sigma_s: float = 60.0, sigma_r: float = 2.0,
 #   a = cov(I, p) / (var(I) + eps),  b = mean(p) − a·mean(I)
 #   q = mean(a)·I + mean(b)
 # Output dtype follows the input (u8 rounds half-up). Pure box filters +
-# elementwise — the most TPU-friendly edge-preserving filter there is.
+# elementwise — the most accelerator-friendly edge-preserving filter there is.
 
 def _box_mean(a, r, xp):
     n = (2 * r + 1)

@@ -3,7 +3,7 @@
 
 The reference has no multi-view geometry; OpenCV-parity addition in the
 findHomography family (ops/geometry.py). Host float64 point math by the
-same TPU split as ops/calib.py: correspondence counts are tiny (tens to
+same device split as ops/calib.py: correspondence counts are tiny (tens to
 thousands), far below device break-even — the per-pixel consumers
 (stereo remap, disparity reprojection) are the device side.
 

@@ -2,7 +2,7 @@
 OpenCV ``calcOpticalFlowFarneback`` role — complements the sparse LK
 tracker in ops/optflow.py with a per-pixel flow field).
 
-TPU formulation: every stage is dense elementwise / separable-correlation
+Device formulation: every stage is dense elementwise / separable-correlation
 work. The polynomial expansion is six separable Gaussian-basis
 correlations (`_taps` shifted views — no conv gather) followed by a
 constant 6x6 normal-equation inverse applied as per-pixel linear
@@ -81,7 +81,7 @@ def _poly_exp(f: jax.Array, n: int, sigma: float) -> jax.Array:
         _sep(f, gx, gx, n),    # <w f, xy>
     ])
     inv = jnp.asarray(ginv[1:], dtype=jnp.float32)  # drop the constant row
-    # HIGHEST: the TPU MXU's default bf16 einsum breaks f64-oracle
+    # HIGHEST: the device matrix unit's default bf16 einsum breaks f64-oracle
     # parity; this [5, 6] contraction is negligible either way
     return jnp.einsum("cp,phw->chw", inv, p,
                       precision=jax.lax.Precision.HIGHEST)

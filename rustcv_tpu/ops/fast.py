@@ -1,10 +1,10 @@
-"""FAST corner detector (features2d parity) — pure elementwise on TPU.
+"""FAST corner detector (features2d parity) — pure elementwise on the device.
 
 FAST-N segment test on a Bresenham ring: a pixel is a corner when ≥ N
 contiguous ring pixels are all brighter than center+t or all darker
 than center−t. All three OpenCV pattern types are supported:
 ``9_16`` (the classic radius-3/16-pixel ring), ``7_12`` (radius-2/12)
-and ``5_8`` (radius-1/8). The TPU formulation has no per-pixel loops:
+and ``5_8`` (radius-1/8). The Device formulation has no per-pixel loops:
 the K ring views are static shifts of the image, the two K-bit ring
 masks live as int32 lanes, and "N contiguous (circularly)" reduces by
 the rotate-AND trick — AND of N−1 successive rotations is nonzero iff

@@ -2,7 +2,7 @@
 
 Bit-exact vs :mod:`golden` (integer taps implemented as shifted adds, which
 XLA fuses into a single elementwise DAG — no convolution primitive needed for
-5-tap kernels, and integer convs aren't MXU-friendly anyway). Works on
+5-tap integer kernels). Works on
 (H, W), (H, W, C) or batched (..., H, W[, C]) arrays; the two spatial axes
 are identified by the ``hw_axes`` convention: they are the last two axes for
 gray input, axes (-3, -2) when a channel axis is present.
@@ -21,6 +21,8 @@ import jax
 import jax.numpy as jnp
 
 GAUSS5 = (1, 4, 6, 4, 1)  # per-axis taps, sum 16
+# Input rows the Gaussian5 → Sobel3 chain needs beyond each output edge.
+HALO = len(GAUSS5) // 2 + 1
 
 
 def _replicate_pad(a: jax.Array, axis: int, r: int) -> jax.Array:
@@ -89,7 +91,7 @@ def isqrt_exact(x: jax.Array) -> jax.Array:
     """Exact floor-sqrt of non-negative int32 (≤ ~2.1e9 via f32 + fix-up)."""
     xf = x.astype(jnp.float32)
     s = jnp.sqrt(xf).astype(jnp.int32)
-    # TPU f32 sqrt may be off by an ULP; two monotone fix-ups restore floor.
+    # f32 sqrt may be off by an ULP; two monotone fix-ups restore floor.
     s = jnp.where((s + 1) * (s + 1) <= x, s + 1, s)
     s = jnp.where(s * s > x, s - 1, s)
     return s
@@ -152,7 +154,7 @@ def median_u8(img: jax.Array, k: int = 5) -> jax.Array:
     Sorting networks scale O(k² log² k²) compare-exchanges; instead build
     the median value bit-by-bit from the MSB: bit b of the median is 0 iff
     at least ⌈k²/2⌉ taps are ≤ prefix + 2^b − 1. Eight counting rounds of
-    k² compares each — pure fusible VPU work, no tap-array mutation, and
+    k² compares each — pure fusible elementwise work, no tap-array mutation, and
     the same code handles every k (the selection-network form is kept for
     k = 3 where its 19 exchanges win). Bit-exact vs golden.median_k.
     """
@@ -185,7 +187,7 @@ def median3_u8(img: jax.Array) -> jax.Array:
     """3×3 median via a 9-element sorting/selection network (exact).
 
     Uses the classic min/max exchange network for the median of 9 — pure
-    elementwise VPU work, bit-exact vs golden.median3.
+    elementwise work, bit-exact vs golden.median3.
     """
     has_channels = img.ndim >= 3 and img.shape[-1] in (1, 3, 4)
     ax_h, ax_w = _spatial_axes(img, has_channels)

@@ -11,7 +11,7 @@ Frozen spec (float-free voting, int32 accumulator):
   with orientation b casts one vote at p + r for each r in bin b;
   peaks = local 3×3 maxima ≥ votes_threshold, sorted by votes.
 
-TPU formulation (the calcHist lesson — NO scatter): the accumulator is
+Device formulation (the calcHist lesson — NO scatter): the accumulator is
 ``Σ over (bin, r) of shift(edge_mask_bin, r)``. Each (bin, r) entry
 shifts a per-bin edge mask by a constant displacement — a
 ``dynamic_slice`` of the zero-padded mask — and adds. The device twin

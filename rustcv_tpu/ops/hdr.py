@@ -4,7 +4,7 @@
 The reference has no HDR stack; OpenCV-parity addition to the photo
 family (nlmeans/inpaint/poisson).
 
-TPU formulation: Mertens exposure fusion is pyramidal elementwise math —
+Device formulation: Mertens exposure fusion is pyramidal elementwise math —
 per-exposure quality weights (contrast = |laplacian|, saturation =
 channel std, well-exposedness = Gaussian around mid-gray), softmax-style
 normalization across the stack, then a Laplacian-pyramid blend. Every

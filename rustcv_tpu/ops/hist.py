@@ -1,7 +1,7 @@
-"""Histogram ops — calcHist / equalizeHist (OpenCV parity), TPU-native.
+"""Histogram ops — calcHist / equalizeHist (OpenCV parity), accelerator-native.
 
-TPU histogramming avoids scatter (measured ~10× slower than compare-reduce
-at these sizes — CLAUDE.md): the device computes 256 masked reductions
+Device histogramming avoids scatter (the slow form on the device it was
+built for): the device computes 256 masked reductions
 (one fused pass, vectorized over the bin axis); equalization builds the
 exact-integer LUT on-device and applies it with one gather.
 
@@ -52,10 +52,9 @@ def equalize_hist_numpy(gray: np.ndarray) -> np.ndarray:
 def calc_hist(gray: jax.Array) -> jax.Array:
     """u8 image (any shape) → [256] int32 counts (exact).
 
-    Histogram as ONE MXU matmul: hi-nibble one-hot [16, N] × lo-nibble
+    Histogram as ONE matmul: hi-nibble one-hot [16, N] × lo-nibble
     one-hot [N, 16] → counts[h, l] = #pixels with value h·16+l. Exact in
-    f32 up to 2^24 pixels (16.7 MP — beyond 4K); the 256-masked-reduction
-    form measured 18 ms at 1080p, this ~1 ms."""
+    f32 up to 2^24 pixels (16.7 MP — beyond 4K)."""
     flat = gray.reshape(-1).astype(jnp.int32)
     if flat.size >= (1 << 24):  # f32 count exactness bound
         bins = jnp.arange(256, dtype=jnp.int32)
@@ -74,8 +73,8 @@ def apply_lut(img: jax.Array, lut: jax.Array) -> jax.Array:
     """u8 image (any shape) × 256-entry u8 LUT → u8 image (OpenCV ``LUT``).
 
     Gather-free: out_i = hi_onehot(p_i) @ lut[16, 16] · lo_onehot(p_i) —
-    one [N, 16] matmul + a 16-term elementwise dot (a 2M-element per-pixel
-    gather measured ~17 ms at 1080p; this form ~3 ms). Exact: all values
+    one [N, 16] matmul + a 16-term elementwise dot instead of a per-pixel
+    gather. Exact: all values
     ≤ 255 in f32."""
     p = img.reshape(-1).astype(jnp.int32)
     nib = jnp.arange(16, dtype=jnp.int32)
@@ -90,7 +89,7 @@ def apply_lut(img: jax.Array, lut: jax.Array) -> jax.Array:
 def equalize_hist(gray: jax.Array) -> jax.Array:
     """Histogram equalization, bit-exact vs cv2 at ANY size: the LUT is
     cv2's own f32 arithmetic (cvRound(f32(sum) · 255.f/denom)) — one
-    IEEE multiply + round-half-even, identical on CPU/TPU/numpy, and
+    IEEE multiply + round-half-even, identical on CPU/device/numpy, and
     immune to the int32 overflow that forced the old exact-integer
     formula onto a host path above ~8.4M pixels."""
     hist = calc_hist(gray)

@@ -3,7 +3,7 @@ SVM detection (OpenCV ``HOGDescriptor`` role, Dalal & Triggs 2005).
 
 The reference has no detection framework; OpenCV-parity addition.
 
-TPU formulation — the whole dense path is elementwise + reshapes, NO
+Device formulation — the whole dense path is elementwise + reshapes, NO
 scatters and NO gathers:
 - orientation soft-binning: the 9 orientation planes are built with
   one-hot compares (``floor-bin == k``) × linear weights — the nibble-

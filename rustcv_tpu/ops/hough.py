@@ -1,7 +1,7 @@
 """Standard Hough line transform — accumulator as one-hot matmuls.
 
-The classical accumulator is a scatter (hostile on TPU); here each theta's
-rho-histogram is an MXU contraction instead:
+The classical accumulator is a scatter (hostile on the device); here each theta's
+rho-histogram is an matrix unit contraction instead:
 
 1. edge pixels compact to a static-size coordinate list (top_k over the
    edge mask — the jit-friendly contract, like harris_corner_list);
@@ -165,9 +165,9 @@ def hough_circles(
     (cx, cy, r), valid bool, votes int32). Callers apply min-dist dedup
     (the facade does greedy suppression on the returned top-K).
 
-    TPU formulation: the classical 2-D center accumulator is a scatter;
+    Device formulation: the classical 2-D center accumulator is a scatter;
     here the flat center bin splits hi/lo (9 bits each) and each radius
-    step accumulates votes as ONE [512, 2N]×[2N, 512] MXU matmul inside a
+    step accumulates votes as ONE [512, 2N]×[2N, 512] matmul inside a
     lax.scan over radii (center grid ≤ 512² bins ⇒ H/dp·W/dp ≤ 262144).
     Both gradient directions vote (bright-on-dark and dark-on-bright).
     Radius recovery: per peak center, an [N, R] one-hot distance
@@ -339,7 +339,7 @@ def hough_lines_p(
 
     OpenCV's probabilistic variant randomly samples points and mutates the
     accumulator as it goes — inherently sequential AND nondeterministic.
-    The TPU-native reformulation is deterministic: the batched device
+    The accelerator-native reformulation is deterministic: the batched device
     accumulator (:func:`hough_lines`) finds the top peak lines, then a
     vectorized host pass walks each line's inlier points (|x·cosθ +
     y·sinθ − rho| ≤ ``tol``), sorts them by projection along the line,

@@ -3,7 +3,7 @@ diffusion method standing in the INPAINT_NS slot).
 
 The reference has no photo restoration; OpenCV-parity addition.
 
-TPU split:
+device split:
 - ``telea``: Bertalmío/Telea Fast Marching — an inherently sequential
   priority-queue march (each pixel depends on the just-solved narrow
   band), so it runs on the host like the GrabCut Dinic / CCL union-find

@@ -1,10 +1,10 @@
-"""TPU-side JPEG reconstruction: dequant → 8×8 IDCT (MXU matmuls) →
+"""device-side JPEG reconstruction: dequant → 8×8 IDCT (matmuls) →
 chroma upsampling → YCbCr→BGR.
 
 The host half (:func:`rustcv_tpu.native.jpeg_entropy_decode`) performs the
 sequential Huffman entropy decode; this module does everything numeric
 on-device. The 8×8 IDCT is expressed as two batched matmuls
-(``Mᵀ · F · M``) — a natural MXU op over thousands of blocks per frame
+(``Mᵀ · F · M``) — a natural matrix unit op over thousands of blocks per frame
 (SURVEY.md §7 hard-part #1's plan, realized).
 
 Frozen reconstruction spec (our oracle; libjpeg differs by ≤1-2 LSB due to
@@ -44,11 +44,9 @@ def idct_kmat() -> np.ndarray:
     """The 2-D IDCT as ONE [64, 64] matrix: K[u·8+v, x·8+y] = M[u,x]·M[v,y].
 
     ``spatial = Mᵀ·F·M`` over thousands of 8×8 blocks is then a single
-    ``[nblocks, 64] @ [64, 64]`` MXU matmul on the natural block-row layout
-    — no per-block reshapes before the compute, which matters: the
-    unpack→IDCT seam cost ~13 ms/tick in relayouts when the coefficients
-    were reshaped to (bh, bw, 8, 8) first (measured on TPU; the matmul form
-    is bit-identical to the two-sided einsum at HIGHEST precision)."""
+    ``[nblocks, 64] @ [64, 64]`` matmul on the natural block-row layout
+    — no per-block reshapes (relayouts) before the compute. The matmul
+    form is bit-identical to the two-sided einsum at HIGHEST precision."""
     m = idct_basis().astype(np.float64)
     return np.einsum("ux,vy->uvxy", m, m).reshape(64, 64).astype(np.float32)
 
@@ -63,7 +61,7 @@ def dequant_idct_plane(coeffs: jax.Array, qt: jax.Array) -> jax.Array:
     """(bh, bw, 8, 8) i16 coeffs + (8, 8) quant → u8 samples (bh*8, bw*8).
 
     Dequant fuses into the input scaling; the 2-D IDCT is ONE
-    ``[nblocks, 64] @ [64, 64]`` MXU matmul at HIGHEST precision (see
+    ``[nblocks, 64] @ [64, 64]`` matmul at HIGHEST precision (see
     :func:`idct_kmat` — bit-identical to the two-sided ``Mᵀ·F·M`` einsum
     and ~6× cheaper once composed with the packed unpack)."""
     bh, bw = coeffs.shape[0], coeffs.shape[1]
@@ -131,9 +129,8 @@ def upsample(c: jax.Array, fh: int, fv: int) -> jax.Array:
 def unpack_coeffs(pos: jax.Array, val: jax.Array, total: int) -> jax.Array:
     """FLAT-packed nonzeros → dense coefficient vector (int16).
 
-    One scatter-add per stream. Measured ~35 ms/tick at 8×1080p on TPU —
-    kept only as a reference/utility; the production path is
-    :func:`unpack_block_coeffs` (one-hot reduce, ~3-5 ms)."""
+    One scatter-add per stream — kept only as a reference/utility; the
+    production path is :func:`unpack_block_coeffs` (one-hot reduce)."""
     return jnp.zeros(total, jnp.int16).at[pos].add(val)
 
 
@@ -163,16 +160,15 @@ def unpack_block_coeffs(
 
     Keeps the block-row layout (NOT flattened): the consumer slices
     component ranges along the block axis and feeds them straight into the
-    [64, 64] IDCT matmul — flattening here cost ~13 ms/tick in XLA
-    relayouts at 8×1080p (measured).
+    [64, 64] IDCT matmul (flattening here would force XLA relayouts).
 
     ``idx``/``val``: [nblocks, K] per-block slots (uint8 natural coefficient
     index / int16 value, zero-filled when unused — a (0, 0) slot adds value
     0 at index 0, a no-op). ``dense_ids``/``dense_rows``: busy blocks
     shipped whole; padded entries carry the sentinel id == nblocks, which
     lands on a scratch row that is dropped. The per-block unpack is a
-    one-hot compare-multiply-reduce over K (pure VPU; a flat scatter-add
-    measured 10× slower on TPU) plus one row-granular scatter for the few
+    one-hot compare-multiply-reduce over K (pure elementwise work instead
+    of a flat scatter-add) plus one row-granular scatter for the few
     busy blocks.
     """
     nblocks = idx.shape[0]

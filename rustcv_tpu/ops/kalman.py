@@ -1,7 +1,7 @@
 """Kalman filtering (OpenCV ``cv::KalmanFilter`` role — the reference has
 no Kalman; this is an OpenCV-parity addition like MOG2/meanShift).
 
-Three layers, TPU-first:
+Three layers, device-first:
 
 - :class:`KalmanFilter` — the OpenCV object API (predict/correct with the
   exact member names), host float64, one tracker. Validated against the

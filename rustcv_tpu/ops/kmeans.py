@@ -1,7 +1,7 @@
-"""k-means clustering — both halves of Lloyd's iteration as MXU matmuls.
+"""k-means clustering — both halves of Lloyd's iteration as matmuls.
 
 OpenCV ``kmeans`` role (the classic vision use: color quantization).
-TPU-native: the assignment step is a distance matmul
+accelerator-native: the assignment step is a distance matmul
 (‖x‖² − 2·X@Cᵀ + ‖c‖², argmin over K) and the update step is a one-hot
 segment-mean (onehot[K, N] @ X[N, D]) — no scatter, no per-point loops;
 iterations run under ``lax.fori_loop`` in one compiled program.

@@ -2,7 +2,7 @@
 Zivkovic & van der Heijden 2006 — the sample-consensus companion to
 MOG2, ops/bgsub.py).
 
-TPU formulation: the model is an [N, H, W(, C)] float32 sample bank per
+Device formulation: the model is an [N, H, W(, C)] float32 sample bank per
 pixel; matching is N squared-distance compares (elementwise, N
 unrolled), the k-NN vote is a sum of match bits, and the sample
 replacement is a one-hot select on a DETERMINISTIC cyclic slot clock —

@@ -1,7 +1,7 @@
 """Line segment detection (OpenCV ximgproc ``FastLineDetector`` role;
 ``createLineSegmentDetector`` niche).
 
-The reference has no feature detectors; OpenCV-parity addition. The TPU
+The reference has no feature detectors; OpenCV-parity addition. The device
 split follows FLD's own structure: the edge map comes from the device
 Canny (ops/filters.canny_u8, bit-exact vs golden.canny), and the
 chain-tracing + splitting — sequential pointer chasing — is the host
@@ -150,7 +150,7 @@ def detect_line_segments(
     """Detect line segments (OpenCV ``FastLineDetector.detect`` role) →
     float64 (N, 4) rows (x1, y1, x2, y2) in detection order. ``edges``
     short-circuits the Canny stage with a precomputed edge mask (the
-    device hot path: run ops/filters.canny_u8 on-chip, trace here)."""
+    device hot path: run ops/filters.canny_u8 on-device, trace here)."""
     if edges is None:
         from . import golden
 

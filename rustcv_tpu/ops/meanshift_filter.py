@@ -3,7 +3,7 @@
 
 The reference has no segmentation-by-filtering; OpenCV-parity addition.
 
-TPU formulation: every pixel carries a (position, color) state that
+Device formulation: every pixel carries a (position, color) state that
 drifts toward its joint spatial-color mode. One iteration = a loop over
 the (2·sp+1)² window offsets; each offset contributes ONE whole-image
 nearest-neighbor gather (flat ``jnp.take`` at the per-pixel rounded
@@ -90,8 +90,8 @@ def _ms_level_jax(img_f, init_c, sp: int, sr, max_iter: int):
     accumulation order, but the (2·sp+1)² offset loop and the iteration
     loop are ``lax.scan``s instead of Python unrolls — the unrolled form
     emitted one gather HLO per offset per iteration per level (726 at
-    sp=5/iters=3/2 levels) and took XLA >10 min to compile (r5 parity-
-    probe finding); the scanned program compiles in seconds and returns
+    sp=5/iters=3/2 levels) and took XLA >10 min to compile; the scanned
+    program compiles in seconds and returns
     bit-identical f32 results (same adds, same order)."""
     h, w = img_f.shape[:2]
     flat = img_f.reshape(-1, 3)

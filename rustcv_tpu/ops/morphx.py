@@ -1,7 +1,7 @@
 """Extended morphology: skeleton thinning and anisotropic diffusion
 (OpenCV ximgproc ``thinning`` / ``anisotropicDiffusion`` roles).
 
-The reference has neither; OpenCV-parity additions. Both are ideal TPU
+The reference has neither; OpenCV-parity additions. Both are ideal device
 shapes — fixed-stencil elementwise iteration, no gathers, no data-
 dependent shapes — so the device twins are single fused programs
 (``lax.while_loop`` / ``fori_loop``) and the oracles here are the

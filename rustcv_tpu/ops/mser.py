@@ -2,7 +2,7 @@
 
 The reference has no feature detectors; OpenCV-parity addition. MSER is
 a component-tree algorithm — per-pixel union-find with data-dependent
-merge history, the one shape a TPU cannot express (the CCL/GrabCut
+merge history, the one shape a device cannot express (the CCL/GrabCut
 precedent) — so the hot path is native C++ (native/mser.cpp) with this
 module holding the frozen Python spec, the shared region extraction,
 and the public API. Native and spec emit IDENTICAL (seed, level, area)

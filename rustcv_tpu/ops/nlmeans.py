@@ -4,7 +4,7 @@
 The reference has no photo module; OpenCV-parity addition, spec frozen
 here with a float64 NumPy oracle (:func:`nl_means_numpy`).
 
-TPU formulation
+Device formulation
 ---------------
 For every search offset ``s`` the patch distance field
 ``D_s = box_{templ}( (I − shift_s(I))² )`` and its weight
@@ -14,7 +14,7 @@ per-pixel gathers anywhere. The search window is a ``lax.scan`` over the
 pair and each step is one ``dynamic_slice`` of the pre-padded image +
 one separable box filter — compile size stays O(1) in the search radius
 instead of unrolling 441 shifted programs. The division happens once at
-the end. Everything is f32 VPU work that XLA fuses per step.
+the end. Everything is f32 elementwise work that XLA fuses per step.
 
 Frozen spec (oracle float64):
 - pad the image by ``search//2 + template//2`` with edge replication;

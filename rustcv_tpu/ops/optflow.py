@@ -1,6 +1,6 @@
 """Pyramidal Lucas–Kanade sparse optical flow (calcOpticalFlowPyrLK).
 
-TPU-native formulation: tracking is vectorized over the POINT axis with
+accelerator-native formulation: tracking is vectorized over the POINT axis with
 ``vmap`` — every level runs all points' gauss-newton iterations as one
 fused program (patch sampling = bilinear gathers, the 2×2 normal system is
 closed-form); the level loop is Python (per-level image shapes are
@@ -43,8 +43,8 @@ def _patch_lerp(img: jax.Array, top_left_y, top_left_x, win: int):
     origin-clamped dynamic_slice + scalar-weight lerp.
 
     Every coordinate of an LK patch shares the same fractional offset, so
-    instead of a 441-point gather per sample (measured 185–285 ms for the
-    full 1080p track) one (win+1)² contiguous slice and four shifted views
+    instead of a 441-point gather per sample one (win+1)² contiguous
+    slice and four shifted views
     suffice. dynamic_slice clamps the ORIGIN when the patch would overhang
     the image (the patch shifts inward rather than edge-replicating) —
     part of the frozen spec; the oracle does the same."""

@@ -5,7 +5,7 @@ in float64 (:func:`golden.resize_coeffs`) and baked into the jitted program as
 constants per (src, dst) shape pair; the device does pure int32 gather+lerp.
 Separable: horizontal gathers keep unshifted 11-bit sums, vertical pass
 rounds once with ``(Σ + 2²¹) >> 22``. Gathers along an axis lower to XLA
-``gather``/``take`` which TPU handles well for contiguous lanes.
+``gather``/``take`` which device handles well for contiguous lanes.
 """
 
 from __future__ import annotations
@@ -86,7 +86,7 @@ def resize_bilinear_plane(plane: jax.Array, dst_w: int, dst_h: int) -> jax.Array
 
     Same frozen fixed-point spec as :func:`resize_bilinear` (resize is
     per-channel independent, so the plane form is bit-identical to the HWC
-    form) with full 128-lane utilization: W sits on the lane dim instead of
+    form) with a dense layout: W sits on the lane dim instead of
     a trailing channel dim of 3."""
     src_h, src_w = plane.shape[-2], plane.shape[-1]
     x_lo, x_hi, x_whi = _tables(src_w, dst_w)
@@ -171,11 +171,9 @@ def resize_bilinear_packed(
 
     Horizontal pass: when the coefficient table is an integer-stride
     affine pattern (any integer-factor downscale), the taps come from a
-    free reshape + static slice instead of a lane gather — measured 9.9 vs
-    10.4 ms/tick composed at 8×1080p→640×480 (old interleaved path: 10.3;
-    a plane-deinterleave form measured 11.6 — the word tricks cost more
-    than they save here). Falls back to a per-lane gather otherwise.
-    Vertical pass is a sublane gather (cheap). Requires dst_w % 4 == 0
+    free reshape + static slice instead of a lane gather. Falls back to a
+    per-lane gather otherwise.
+    Vertical pass is a row gather (cheap). Requires dst_w % 4 == 0
     only for downstream word-trick consumers, not for this op itself."""
     one = golden.RESIZE_ONE
     x_lo, x_hi, x_whi = _tables(src_w, dst_w)

@@ -1,7 +1,7 @@
 """cv2-exact ``resize`` for uint8 — reverse-engineered OpenCV 5.0 arithmetic.
 
 These are the *frozen-spec host twins* backing the drop-in ``cv2`` facade
-(the TPU capture pipeline keeps using ``imgproc.resize``'s device kernels;
+(the device capture pipeline keeps using ``imgproc.resize``'s device kernels;
 see reference rustcv/src/imgproc — the reference has no resize of its own
 and delegates display scaling to the OS, so this spec is pinned against
 OpenCV itself).  Every branch below was established empirically against

@@ -5,7 +5,7 @@ The reference has no SGBM (its vision surface stops at capture); this is
 an OpenCV-parity addition in the StereoBM family (ops/stereo.py), spec
 frozen here with a float64/int64 NumPy oracle (:func:`stereo_sgbm_numpy`).
 
-TPU formulation
+Device formulation
 ---------------
 - Matching cost: Birchfield–Tomasi sampling-insensitive absolute
   difference on the clipped x-Sobel prefiltered images, box-summed over
@@ -15,8 +15,8 @@ TPU formulation
   ``L_r(p,d) = C(p,d) + min(L_r(q,d), L_r(q,d±1)+P1, min_d' L_r(q)+P2)
   − min_d' L_r(q)`` run as a ``lax.scan`` along the scan axis,
   vectorized over the perpendicular axis AND the full disparity axis —
-  one scan step touches an [M, D] slab, so the MXU-free inner loop is
-  D-wide VPU work, not a per-pixel Python loop. Horizontal/vertical
+  one scan step touches an [M, D] slab, so the matrix unit-free inner loop is
+  D-wide elementwise work, not a per-pixel Python loop. Horizontal/vertical
   paths scan columns/rows; the four diagonal paths are row scans whose
   carry is shifted one column per step (zero-filled — a zero carry IS
   the SGM border condition, since ``cand − minL`` vanishes).

@@ -5,7 +5,7 @@ addition in the ORB/Harris family. The patent expired in 2020; the
 algorithm here is the published one, re-derived, with every constant
 frozen below.
 
-TPU split (the repo's standard dense/sparse split):
+device split (the repo's standard dense/sparse split):
 - The DENSE work — Gaussian pyramid, DoG, 26-neighbor extrema masks —
   is device-friendly separable blurs + elementwise compares
   (:func:`build_pyramids` has a jax twin :func:`build_pyramids_device`
@@ -424,7 +424,7 @@ def detect_and_compute(
 def match_descriptors_l2(d1: np.ndarray, d2: np.ndarray,
                          ratio: float = 0.75) -> np.ndarray:
     """L2 matching with Lowe ratio + mutual cross-check → int32 [M, 2].
-    ‖a−b‖² expands to one [N1,128]@[128,N2] matmul (MXU form when the
+    ‖a−b‖² expands to one [N1,128]@[128,N2] matmul (matrix unit form when the
     arrays are jax; numpy here — descriptor counts are small)."""
     a = np.asarray(d1, np.float64)
     b = np.asarray(d2, np.float64)

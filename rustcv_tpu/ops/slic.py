@@ -8,7 +8,7 @@ initialized to block means, 10 Lloyd iterations, then a host
 connectivity pass that absorbs islands smaller than S²/4 into the
 neighbor with the longest shared boundary.
 
-TPU formulation (GATHER- AND SCATTER-FREE — the repo's recurring
+Device formulation (GATHER- AND SCATTER-FREE — the repo's recurring
 lesson): the image is padded to integer multiples of S so every cell
 is an S×S block. Per-pixel candidate centers come from
 ``jnp.repeat``-upsampled center maps rolled by the 9 offsets (pure

@@ -1,11 +1,11 @@
 """Stereo block matching (OpenCV ``StereoBM`` role) — disparity from a
 rectified L/R pair.
 
-TPU formulation: the cost volume is D shifted absolute differences box-
+Device formulation: the cost volume is D shifted absolute differences box-
 filtered with separable taps (a vmapped stack — no per-pixel loops), the
 disparity is an argmin over D, and sub-pixel refinement fits the standard
 parabola through the three costs around the winner. Memory: the [D, H, W]
-int32 volume is ~530 MB at 1080p/64 disparities — fine in 16 GB HBM; use
+int32 volume is ~530 MB at 1080p/64 disparities — fine in device memory; use
 chunked calls for larger products.
 
 Frozen spec:

@@ -7,7 +7,7 @@ entirely from this framework's own primitives:
     (ops/geometry.py) → canvas warp (ops/warp.warp_perspective — the
     packed-quad device path for jax inputs) → feather blend.
 
-TPU split: registration is sparse host math (hundreds of keypoints);
+device split: registration is sparse host math (hundreds of keypoints);
 compositing — the per-pixel work — is the device warp + elementwise
 blend when inputs are jax arrays, NumPy oracle otherwise.
 

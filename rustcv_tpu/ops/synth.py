@@ -1,7 +1,7 @@
 """Device-side simulation frame synthesis.
 
 A real camera DMAs frames into kernel buffers without touching the CPU; the
-TPU-native analog of a *simulated* camera is frame synthesis directly in HBM
+accelerator-native analog of a *simulated* camera is frame synthesis directly in device memory
 — zero host↔device traffic on the capture path. These kernels are bit-exact
 re-implementations of the host generators in
 :mod:`rustcv_tpu.capture.simulation` (``synth_bgr`` / ``encode_yuyv`` /
@@ -38,7 +38,7 @@ def _pattern_planes(seq: jax.Array, xs: jax.Array, ys: jax.Array, width: int, he
     pair) or quarter (NV12 chroma) resolution without any strided slicing.
     Returns (b, g, r) int32 planes shaped like xs/ys.
     """
-    # Color bars via threshold compares — integer division has no VPU
+    # Color bars via threshold compares — integer division has no vector
     # instruction (a `xs*8//W` per pixel costs a long emulation sequence),
     # so bar k ⇔ xs ∈ [ceil(k·W/8), ceil((k+1)·W/8)) is tested directly.
     # (Equivalent to clip(xs*8//max(W,1), 0, 7) for xs ∈ [0, W).)

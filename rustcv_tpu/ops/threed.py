@@ -16,7 +16,7 @@ Frozen specs:
   (barycentric) vertex-color interpolation; top-left-ish tie rule:
   pixels with all barycentrics ≥ 0 are covered.
 
-TPU formulation of the rasterizer: one ``lax.scan`` over triangles;
+Device formulation of the rasterizer: one ``lax.scan`` over triangles;
 each step evaluates the three barycentric half-planes over the FULL
 frame (elementwise iota math, no gathers) and does a z-test select —
 the classic "one mask per primitive" data-parallel rasterizer. The

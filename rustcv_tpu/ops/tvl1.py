@@ -14,7 +14,7 @@ outputs are not bit-equal; tests pin (a) within-4-LSB mean agreement
 with cv2.denoise_TVL1 on piecewise-constant scenes and (b) an energy
 decrease vs the noisy input.
 
-TPU formulation: one ``fori_loop`` whose body is pure shifted-view
+Device formulation: one ``fori_loop`` whose body is pure shifted-view
 elementwise math (gradient/divergence = jnp.diff-style slices) — XLA
 fuses the whole iteration; no gathers, no scatters.
 """

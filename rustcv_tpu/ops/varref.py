@@ -24,7 +24,7 @@ not bit-equal; tests pin (a) end-point-error reduction of a noisy flow
 on ground-truth scenes and (b) EPE within 1.5× of
 cv2.VariationalRefinement on the same inputs.
 
-TPU formulation: the whole refinement is ONE jitted program — outer
+Device formulation: the whole refinement is ONE jitted program — outer
 fori_loop over fixed-point rounds, inner fori_loop over SOR sweeps,
 red-black via checkerboard masks (pure elementwise), warp via the
 shared-fraction bilinear gather used by DIS/Farneback.

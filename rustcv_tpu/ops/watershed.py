@@ -1,6 +1,6 @@
 """Marker-based watershed segmentation (the OpenCV ``watershed`` role).
 
-TPU formulation: watershed-by-bottleneck in TWO schedule-independent
+Device formulation: watershed-by-bottleneck in TWO schedule-independent
 phases (no priority queue, no pointer chasing):
 
 1. **Costs** — every pixel's minimum-bottleneck cost to any seed (cost

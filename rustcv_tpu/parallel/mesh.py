@@ -1,13 +1,13 @@
-"""Device-mesh helpers — shard the stream batch across chips.
+"""Device-mesh helpers — shard the stream batch across devices.
 
 The reference is single-process with no distributed layer (SURVEY.md §2.7);
-scaling out is dual-camera examples run by hand. TPU-native scaling: the
-stream/batch axis is the data-parallel axis. A 1-D mesh over all devices with
-inputs sharded ``P('stream')`` makes every pipeline stage embarrassingly
-parallel (no collectives — stencils never cross stream boundaries), so XLA
-executes the same fused program per chip over its shard; ICI is only touched
-if a reduction over streams is requested (e.g. fleet-wide corner counts via
-``psum``).
+scaling out is dual-camera examples run by hand. Here the stream/batch axis
+is the data-parallel axis. A 1-D mesh over all devices with inputs sharded
+``P('stream')`` makes every pipeline stage embarrassingly parallel (no
+collectives — stencils never cross stream boundaries), so XLA executes the
+same fused program per device over its shard; the interconnect is only
+touched if a reduction over streams is requested (e.g. fleet-wide corner
+counts via ``psum``).
 """
 
 from __future__ import annotations
@@ -16,12 +16,8 @@ from typing import Optional, Sequence
 
 import jax
 import numpy as np
+from jax import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-
-try:
-    from jax import shard_map
-except ImportError:  # pragma: no cover — older jax
-    from jax.experimental.shard_map import shard_map
 
 
 def stream_mesh(devices: Optional[Sequence] = None, axis: str = "stream") -> Mesh:
@@ -39,8 +35,9 @@ def grid_mesh(
     """A 2-D (streams × rows) mesh: the outer axis data-parallels stream
     groups, the inner axis shards each frame's rows (spatial parallelism
     with ppermute halos — parallel/spatial.py). The inner axis varies
-    fastest over the device list, so row-neighbor chips are ICI-adjacent
-    on a physical torus slice."""
+    fastest over the device list. Every GPU of a host reaches every other
+    over NVLink at the same rate, so the shape follows the algorithm
+    alone."""
     devs = np.asarray(devices if devices is not None else jax.devices())
     if devs.size != n_streams * n_rows:
         raise ValueError(
@@ -65,10 +62,10 @@ def shard_batch(x, mesh: Mesh):
 
 
 def corner_counts_psum(corner_mask, mesh: Mesh):
-    """Example cross-chip reduction: total corners across all streams.
+    """Example cross-device reduction: total corners across all streams.
 
-    Runs under ``shard_map`` so the per-chip partial sums reduce over ICI
-    with a single ``psum``.
+    Runs under ``shard_map`` so the per-device partial sums reduce with a
+    single ``psum`` (an all-reduce over NVLink on GPUs).
     """
     axis = mesh.axis_names[0]
 

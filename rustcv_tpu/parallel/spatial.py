@@ -1,9 +1,9 @@
-"""Spatial parallelism — shard ONE frame's rows across chips.
+"""Spatial parallelism — shard ONE frame's rows across devices.
 
 The stream axis is the natural data-parallel axis (parallel/mesh.py), but a
-single huge frame (8K stitch, microscopy scan) can also be split: each chip
+single huge frame (8K stitch, microscopy scan) can also be split: each device
 owns a horizontal band and stencils exchange 3-row halos with neighbors via
-``lax.ppermute`` over ICI — the image-domain analog of blockwise sequence
+``lax.ppermute`` — the image-domain analog of blockwise sequence
 parallelism (SURVEY §5 "long-context analog"). Nothing like this exists in
 the reference (single-process, CPU loops).
 
@@ -23,8 +23,9 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
-from ..ops.pallas.stencil import HALO, _G5  # one source of truth for radii
-from .mesh import shard_map
+from jax import shard_map
+
+from ..ops.filters import GAUSS5, HALO  # one source of truth for radii
 
 
 def _taps(a, weights, axis, start, size):
@@ -44,7 +45,7 @@ def _band_blur_sobel(g, axis_name: str, n_dev: int):
     band = g.shape[-2]
     w = g.shape[-1]
 
-    # Halo exchange over ICI: my top rows go to the device above (becoming
+    # Halo exchange between neighbouring devices: my top rows go to the device above (becoming
     # its bottom halo) and vice versa. Unpaired devices receive zeros and
     # substitute global-edge replication below.
     fwd = [(i, i + 1) for i in range(n_dev - 1)]   # i's bottom rows → i+1
@@ -62,8 +63,8 @@ def _band_blur_sobel(g, axis_name: str, n_dev: int):
 
     # Gaussian at centers rows [-1, band+1) (array row c+3, taps c+1..c+5 →
     # start 0), cols [0, w).
-    tmp = _taps(a, _G5, axis=-1, start=0, size=w)
-    blur = (_taps(tmp, _G5, axis=-2, start=0, size=band + 2) + 128) >> 8
+    tmp = _taps(a, GAUSS5, axis=-1, start=0, size=w)
+    blur = (_taps(tmp, GAUSS5, axis=-2, start=0, size=band + 2) + 128) >> 8
 
     # Two-stage border rule at GLOBAL edges: Sobel must see the replicated
     # BLURRED edge row, not a blur of replicated originals.

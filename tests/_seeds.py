@@ -1,4 +1,4 @@
-"""Rotating-seed policy for the differential suites (VERDICT r4 #8).
+"""Rotating-seed policy for the differential suites .
 
 Fixed seeds make "bit-exact on random inputs" claims only as strong as
 the 5 samples that chose the tolerance. Policy:

@@ -1,8 +1,8 @@
 """Argument synthesis for the cv2-facade call-coverage harness.
 
 Every public callable in ``rustcv_tpu.cv2`` must be CALLED once by
-tests/test_cv2_call_coverage.py (VERDICT r4 item 1: make the
-raise-on-call bug class structurally extinct).  This module holds the
+tests/test_cv2_call_coverage.py (to make the raise-on-call bug class
+structurally extinct).  This module holds the
 machinery: a parameter-name -> value synthesizer and a per-callable
 override table for signatures the synthesizer cannot infer.
 

@@ -1,6 +1,6 @@
 """MJPEG-AVI video file I/O: VideoWriter container correctness, reader
 robustness, VideoCapture("file.avi") routing, and batched engine
-consumption (host + TPU hybrid decode)."""
+consumption (host + device hybrid decode)."""
 
 import io
 import os

@@ -1,6 +1,5 @@
-"""Class-method call coverage for the cv2 facade (r5, phase 2 of the
-call-coverage harness — VERDICT r4 item 1's "class methods reachable
-from factories").
+"""Class-method call coverage for the cv2 facade (phase 2 of the
+call-coverage harness: class methods reachable from factories).
 
 Every public class in rustcv_tpu.cv2 is instantiated (zero-arg
 constructor, classmethod ``create``, or a per-name recipe) and every

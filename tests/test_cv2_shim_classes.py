@@ -257,13 +257,13 @@ def test_meanshift(scene):
 
 def test_qr_roundtrip_with_cv2():
     import rustcv_tpu.ops.qr as qr
-    img = qr.draw(qr.encode("hello tpu"), module_px=6, border=4)
+    img = qr.draw(qr.encode("hello gpu"), module_px=6, border=4)
     text, pts, _ = rcv.QRCodeDetector().detectAndDecode(img)
-    assert text == "hello tpu"
+    assert text == "hello gpu"
     assert pts.shape == (1, 4, 2)
     # cross-oracle: real cv2 decodes our generated QR
     t2, _, _ = cv.QRCodeDetector().detectAndDecode(img)
-    assert t2 == "hello tpu"
+    assert t2 == "hello gpu"
 
 
 def test_merge_mertens_and_tonemap(scene):

@@ -1,4 +1,4 @@
-"""Multi-process ``jax.distributed`` rehearsal (VERDICT r3 #6).
+"""Multi-process ``jax.distributed`` rehearsal.
 
 The only seam between the virtual-mesh evidence and a real pod is process
 boundaries: does the global mesh form across ``jax.distributed.initialize``
@@ -11,7 +11,7 @@ coordinator and asserts
     processes — a same-process reduction would return 1 × local_fps).
 
 Reference seam: SURVEY.md §2.7 scale-out row; examples/launch_distributed.py
-is the turnkey pod script being rehearsed. Recorded pass: docs/ROUND4.md.
+is the turnkey pod script being rehearsed.
 """
 
 import ast
@@ -75,7 +75,7 @@ def test_two_process_fleet_psum():
 
 @pytest.mark.slow
 def test_four_process_2d_mesh_bit_exact():
-    """VERDICT r4 #7: 4 processes x 4 devices = a 16-chip virtual fleet
+    """4 processes x 4 devices = a 16-device virtual fleet
     running the 2-D streams x rows program (ppermute halo exchange) with
     the device grid transposed so EVERY row-band neighbor lives in a
     different process — the halos must cross process boundaries for the

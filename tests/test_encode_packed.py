@@ -42,6 +42,23 @@ class TestPackCoeffRows:
         dense = jenc.unpack_coeff_rows_numpy(idx, val, ids, rows, c.shape[0])
         np.testing.assert_array_equal(dense, c)
 
+    @pytest.mark.parametrize("k", [4, 10])
+    def test_full_int16_range_exact(self, jax_cpu, k):
+        """The one-hot selection matmul is exact for any int16 value, not
+        only the ±1023 of baseline JPEG (no reduced-precision matmul)."""
+        rng = np.random.default_rng(k)
+        c = np.zeros((64, 64), np.int16)
+        for b in range(64):
+            pos = rng.choice(64, size=rng.integers(1, k + 1), replace=False)
+            c[b, pos] = rng.integers(-32768, 32768, size=len(pos))
+        idx, val, ids, rows, nd = (
+            np.asarray(a)
+            for a in jenc.pack_coeff_rows(jax_cpu.numpy.asarray(c), k, 8)
+        )
+        assert int(nd) == 0
+        dense = jenc.unpack_coeff_rows_numpy(idx, val, ids, rows, c.shape[0])
+        np.testing.assert_array_equal(dense, c)
+
     def test_overflow_reported(self, jax_cpu):
         rng = np.random.default_rng(3)
         c = _coeffs(rng, nblocks=64, busy_every=2)  # half the blocks busy

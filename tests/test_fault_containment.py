@@ -54,7 +54,7 @@ def test_one_stream_fails_batch_survives(jax_cpu):
 
 
 def test_drop_count_ignores_fault_sentinel(jax_cpu):
-    """ADVICE r1: a stream fault on the run's last tick recorded seq=-1 into
+    """A stream fault on the run's last tick recorded seq=-1 into
     the drop math and subtracted that stream's whole range. Sentinel ticks
     must be excluded from expected/observed counts."""
     eng = MultiStreamEngine(
@@ -90,7 +90,7 @@ def test_drop_count_ignores_first_tick_fault(jax_cpu):
 
 
 def test_overlay_cache_is_content_keyed(jax_cpu):
-    """ADVICE r1: the overlay cache was keyed by id(); a GC'd caller array
+    """The overlay cache was keyed by id(); a GC'd caller array
     could recycle its id and silently serve stale rects. Content changes —
     including IN-PLACE mutation — must take effect."""
     eng = MultiStreamEngine(
@@ -111,7 +111,7 @@ def test_overlay_cache_is_content_keyed(jax_cpu):
     assert tuple(r2[4, 10]) != (0, 255, 0)
 
     # New same-shape array (CPython often recycles the id of the collected
-    # previous one — the exact failure mode from ADVICE).
+    # previous one — the exact failure mode once seen).
     del rects
     rects2 = np.array([[10, 38, 20, 8]], np.int32)
     r3 = eng.tick(rects=rects2, rect_colors=colors, block=True).numpy("bgr")[0]

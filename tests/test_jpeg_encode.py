@@ -1,4 +1,4 @@
-"""TPU JPEG encode path: device FDCT/quant vs the float64 oracle, the
+"""device JPEG encode path: device FDCT/quant vs the float64 oracle, the
 native entropy coder's exact invertibility, and end-to-end decodability by
 an independent decoder (PIL/libjpeg)."""
 

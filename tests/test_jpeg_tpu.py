@@ -1,4 +1,4 @@
-"""Hybrid MJPEG path tests: C++ entropy decode + TPU reconstruction vs PIL
+"""Hybrid MJPEG path tests: C++ entropy decode + device reconstruction vs PIL
 (libjpeg) and vs the frozen NumPy oracle."""
 
 import io

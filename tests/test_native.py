@@ -92,8 +92,8 @@ class TestNativeSource:
 
 
 class TestJpegEntropyRobustness:
-    """The entropy parser runs on untrusted camera/MJPEG bytes (ADVICE r1:
-    heap overflow on a 7-byte truncated DQT). Malformed input must raise
+    """The entropy parser runs on untrusted camera/MJPEG bytes (a 7-byte
+    truncated DQT once overflowed the heap). Malformed input must raise
     ValueError — never read out of bounds or crash."""
 
     def _sample(self):
@@ -162,9 +162,9 @@ class TestJpegEntropyRobustness:
 
 
 class TestGilRelease:
-    """The multi-worker scaling claim (decode/encode pools, PERFORMANCE.md)
-    rests on the ctypes coders releasing the GIL. This host has one core,
-    so a wall-clock speedup is unmeasurable here — instead we prove the
+    """The multi-worker scaling claim (decode/encode pools) rests on the
+    ctypes coders releasing the GIL. A wall-clock speedup depends on the
+    host's cores, so instead we prove the
     release directly: a pure-Python counter thread keeps making progress
     WHILE a native entropy decode runs. With the GIL held for the call's
     duration, the counter would sit frozen until the call returned.
@@ -183,30 +183,34 @@ class TestGilRelease:
         jpg = bytes(encode_mjpeg(synth_bgr(1280, 720, 3), quality=95))
         native.jpeg_entropy_decode(jpg)  # warm (lazy lib build)
 
-        progress = []
+        # One counter cell, not a growing list: while the main thread waits
+        # to take the GIL back, the counter thread may run for a whole
+        # switch interval, and a list would grow by gigabytes meanwhile.
+        progress = [0]
         stop = threading.Event()
 
         def count():
-            n = 0
             while not stop.is_set():
-                n += 1
-                progress.append(n)
+                progress[0] += 1
 
         t = threading.Thread(target=count, daemon=True)
         t.start()
-        while not progress:  # counter thread actually running
+        while not progress[0]:  # counter thread actually running
             time.sleep(0.001)
         old = sys.getswitchinterval()
-        sys.setswitchinterval(10.0)  # no timeslice handoffs from here on
+        # No timeslice handoffs from here on: 1 s is far longer than the five
+        # native calls take together, and each time the main thread wants
+        # the GIL back it waits at most one interval.
+        sys.setswitchinterval(1.0)
         try:
-            before = len(progress)
+            before = progress[0]
             for _ in range(5):
                 native.jpeg_entropy_decode(jpg)  # ~10+ ms of native work
-            during = len(progress) - before
+            during = progress[0] - before
             stop.set()
             t.join(timeout=5)
             # With the GIL held across the native calls, `during` would be
-            # ~0 (the main thread never yields: setswitchinterval(10)).
+            # ~0 (the main thread never yields within one interval).
             assert during > 1000, f"counter made only {during} steps"
         finally:
             sys.setswitchinterval(old)

@@ -45,7 +45,7 @@ class TestMatrix:
         (1, "L", 0, "HELLO"), (1, "H", 6, "x"),
         (2, "M", 3, "rustcv_tpu round three"),
         (3, "Q", 2, "abcdefghij klmnop"),
-        (4, "H", 7, "QR on TPU frameworks!"),
+        (4, "H", 7, "QR on GPU frameworks!"),
     ])
     def test_encode_decode_roundtrip(self, v, lvl, mask, text):
         m = qr.encode(text, v, lvl, mask)

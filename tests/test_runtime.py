@@ -340,6 +340,18 @@ class TestSpatialParallel:
             ])
             np.testing.assert_array_equal(got, want, err_msg=str(shape))
 
+    @pytest.mark.parametrize("n_dev", [2, 4, 8])
+    def test_spatial_blur_sobel_mesh_sizes(self, rng, jax_cpu, n_dev):
+        """One tall frame over 2, 4 and 8 devices (each band ≥ HALO rows)."""
+        from rustcv_tpu.parallel import blur_sobel_mag_spatial, stream_mesh
+
+        mesh = stream_mesh(jax_cpu.devices()[:n_dev], axis="rows")
+        g = rng.integers(0, 256, (1, 24 * n_dev, 72), dtype=np.uint8)
+        got = np.asarray(blur_sobel_mag_spatial(jax_cpu.numpy.asarray(g), mesh))
+        want = golden.gradient_magnitude_u8(
+            *golden.sobel3_gray(golden.gaussian5_u8(g[0])))
+        np.testing.assert_array_equal(got[0], want)
+
     def test_spatial_2d_mesh_bit_exact(self, rng, jax_cpu):
         """2-D (streams × rows) mesh: stream-DP and row-sharded halos in
         ONE program over one mesh — still bit-exact vs golden."""
@@ -388,10 +400,9 @@ class TestSpatialParallel:
 
 
 class TestSubBatch:
-    """sub_batch (r5): sequential narrow sub-ticks inside one program —
-    XLA's temp working set grows super-linearly with batch width (8/16/32
-    x 1080p = 142/425/850 MB, probe_subbatch on-chip), so wide ticks lose
-    throughput; chunking restores the narrow working set. Outputs must be
+    """sub_batch: sequential narrow sub-ticks inside one program — XLA's
+    temp working set grows faster than linearly with batch width, and
+    chunking restores the narrow working set. Outputs must be
     BIT-IDENTICAL to the monolithic program."""
 
     def test_outputs_match_monolithic(self, jax_cpu):

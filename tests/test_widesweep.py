@@ -1,4 +1,4 @@
-"""Wide tolerance-envelope sweeps (VERDICT r4 #8) — ``-m widesweep``.
+"""Wide tolerance-envelope sweeps — ``-m widesweep``.
 
 The differential suite's estimate-based tolerances (warp/remap ".5-boundary
 flips ~1 px per 300k", the hull ordering, the Luv near-black instability)
